@@ -1,0 +1,128 @@
+"""The port's two_stage step (unet_tpu_torch.pipeline.stages) against the JAX
+package's, end to end at model_size 64x64 on synthetic cable scenes."""
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from chip_smoke import ColourClassModel, synthetic_frames
+from unet_tpu.models import NestedUNet as JNestedUNet
+from unet_tpu.pipeline import presets as jpresets
+from unet_tpu.pipeline import stages as jstages
+from unet_tpu_torch.models import NestedUNet
+from unet_tpu_torch.models.convert import state_dict_from_flax
+from unet_tpu_torch.pipeline import presets, stages
+
+H, W = 224, 400
+
+
+class _JColourClassModel:
+    """JAX twin of chip_smoke.ColourClassModel (NHWC)."""
+
+    def apply(self, variables, x, train=False):
+        cable = (x[..., 0] > 0.6) & (x[..., 2] > 0.6)
+        tape = (x[..., 0] > 0.6) & (x[..., 2] < 0.4) & ~cable
+        cls = jnp.where(tape, 2, jnp.where(cable, 1, 0))
+        return jax.nn.one_hot(cls, 3) * 10.0
+
+
+class _FixedLogits(torch.nn.Module):
+    def __init__(self, logits_nchw: np.ndarray):
+        super().__init__()
+        self.logits = torch.from_numpy(np.array(logits_nchw))
+
+    def forward(self, x):
+        return self.logits
+
+
+class _JFixedLogits:
+    def __init__(self, logits_nhwc: np.ndarray):
+        self.logits = jnp.asarray(logits_nhwc)
+
+    def apply(self, variables, x, train=False):
+        return self.logits
+
+
+def _cfg(jax_side: bool):
+    mod = jpresets if jax_side else presets
+    return mod.two_stage().replace_in("preprocess", model_size=(64, 64))
+
+
+def _assert_same(got, want):
+    for name in ("class_map", "cable_px", "tape_px", "burr_px"):
+        g, w = getattr(got, name).numpy(), np.asarray(getattr(want, name))
+        assert g.dtype == w.dtype and np.array_equal(g, w), name
+
+
+def test_crop_box_is_448x384():
+    y1, y2, x1, x2 = stages.roi_crop_box(presets.two_stage(), (448, 800))
+    assert (y1, y2, x1, x2) == (0, 448, 183, 567)
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_two_stage_fabricated_logits_bit_identical(seed):
+    frames = synthetic_frames(2, H, W, seed=seed, patch=14)
+    want = jstages.build_step(_JColourClassModel(), _cfg(True))({}, jnp.asarray(frames))
+    got = stages.build_step(ColourClassModel(), _cfg(False), device="cpu")(frames)
+    _assert_same(got, want)
+    assert got.cable_px.min() > 0 and got.tape_px.min() > 0
+    assert got.burr_px.sum() > 0, "no burr candidate survived: stage 2 untested"
+
+
+def test_two_stage_nested_unet_shared_weights():
+    """Real NestedUNet, flax-initialised weights carried across. Masks must
+    agree wherever the JAX logits' top-2 margin is >= 1e-3; on those logits
+    stage 2 is then identical (checked by feeding both pipelines the JAX
+    logits)."""
+    frames = synthetic_frames(2, H, W, seed=5, patch=14)
+    jm = JNestedUNet(num_classes=3, deep_supervision=True)
+    variables = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0),
+                                                 jnp.zeros((1, 64, 64, 3)), train=False))
+    # spread the classes so cable reaches the ROI and stage 2 runs
+    jcfg = _cfg(True)
+    x = jstages.model_input(jstages.geometric_preprocess(jnp.asarray(frames), jcfg), jcfg)
+    logits = np.asarray(jm.apply(variables, x, train=False))
+    variables["params"]["final"]["bias"] = (
+        variables["params"]["final"]["bias"] - logits.mean(axis=(0, 1, 2))
+        + np.array([0.0, 0.3, -0.3], np.float32)).astype(np.float32)
+    logits = np.asarray(jm.apply(variables, x, train=False))
+
+    tm = NestedUNet(num_classes=3, deep_supervision=False)
+    tm.load_state_dict(state_dict_from_flax(variables))
+    with torch.inference_mode():
+        tx = stages.model_input(stages.geometric_preprocess(
+            torch.from_numpy(frames), _cfg(False)), _cfg(False))
+        tlogits = tm.eval()(tx.permute(0, 3, 1, 2).contiguous()).numpy()
+    np.testing.assert_allclose(tlogits.transpose(0, 2, 3, 1), logits,
+                               atol=1e-3, rtol=1e-3)
+    top2 = np.sort(logits, axis=-1)
+    sure = (top2[..., -1] - top2[..., -2]) >= 1e-3
+    assert np.array_equal(tlogits.argmax(1)[sure], logits.argmax(-1)[sure])
+
+    want = jstages.build_step(jm, jcfg)(variables, jnp.asarray(frames))
+    got = stages.build_step(tm, _cfg(False), device="cpu")(frames)
+    assert np.asarray(want.cable_px).min() > 0
+    if sure.all():
+        _assert_same(got, want)
+    # stage 2 on the JAX logits, through both pipelines
+    want = jstages.build_step(_JFixedLogits(logits), jcfg)({}, jnp.asarray(frames))
+    got = stages.build_step(_FixedLogits(logits.transpose(0, 3, 1, 2)), _cfg(False),
+                            device="cpu")(frames)
+    _assert_same(got, want)
+
+
+def test_unported_branches_raise():
+    model = ColourClassModel()
+    for name in ("enhanced", "wrap_uniformity", "robust", "spatial", "roi_first"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            stages.build_step(model, presets.get_preset(name), device="cpu")
+    with pytest.raises(NotImplementedError, match="A13"):
+        NestedUNet(num_classes=3, pretrained_encoder=True)
+
+
+def test_build_step_cuda_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        stages.build_step(ColourClassModel(), presets.two_stage())

@@ -1,0 +1,23 @@
+"""unet_tpu_torch — the PyTorch/CUDA port of unet_tpu for NVIDIA Hopper.
+
+A second package beside `unet_tpu` (the JAX reference, which it never
+imports). Plain tensor code is PyTorch; the TPU's Pallas kernels become
+kernels written by hand for `sm_90a` under `csrc/`, built with `nvcc` at
+first use (`unet_tpu_torch._build`) and bound with `ctypes`.
+
+Slice 1 runs the `two_stage` preset end to end:
+`pipeline.stages.build_step(model, presets.two_stage(), device="cuda")`.
+
+Layout conventions are the JAX package's at every public function, so the
+parity tests compare like with like:
+* frames: ``(B, H, W, 3)`` uint8 BGR; float images ``(..., H, W[, C])``
+* masks:  ``(..., H, W)`` bool
+* the model itself is an ``nn.Module`` in NCHW with the reference's
+  state-dict keys.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``. On a
+CPU tensor each kernel wrapper uses its plain PyTorch version; on a CUDA
+tensor it launches the kernel or raises. Importing builds nothing.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,9 @@
+"""Image/mask ops of the port, one module per counterpart in unet_tpu.ops.
+
+  color       bgr2rgb / rgb2gray / bgr2gray
+  image       resize_bilinear / resize_nearest / gaussian_blur
+  morph       ellipse_kernel / dilate / erode / open_ / close_ / outer_band
+  edges       canny / hysteresis
+  cc          filter_components_by_geometry
+  cc_kernels  propagate: the CUDA kernel for the CC/hysteresis fixpoint
+"""

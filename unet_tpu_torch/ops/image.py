@@ -1,0 +1,157 @@
+"""Geometric and filtering image ops with OpenCV-matching semantics
+(counterpart of unet_tpu/ops/image.py:32-92, 163-168, 219-306; the
+decoder's align-corners upsample, image.py:114-134, is F.interpolate in
+models/unetpp.py).
+
+Conventions, as in the reference:
+  * INTER_LINEAR uses half-pixel centers: src = (dst + 0.5) * scale - 0.5;
+    the tap INDICES are clamped and `frac` keeps its value.
+    F.interpolate(align_corners=False) clamps the source COORDINATE instead,
+    which differs on an upscale's first row, so it is not used here.
+  * INTER_NEAREST uses src = floor(dst * scale), clipped
+  * the filters' border is BORDER_REFLECT_101
+
+Index and weight tables are computed with numpy in float64 exactly as the
+reference computes them, then moved to the tensor's device.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+
+def _channel_axes(img: torch.Tensor, channel_dim) -> int:
+    if channel_dim is None:
+        channel_dim = img.shape[-1] <= 4 and img.ndim >= 3
+    return img.ndim - (3 if channel_dim else 2)
+
+
+def _idx(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(device)
+
+
+# ---------------------------------------------------------------------------
+# resize
+# ---------------------------------------------------------------------------
+
+def _linear_index_weights(out_size: int, in_size: int):
+    """Half-pixel-center source indices + lerp weights (cv2 INTER_LINEAR)."""
+    scale = in_size / out_size
+    src = (np.arange(out_size, dtype=np.float64) + 0.5) * scale - 0.5
+    i0 = np.floor(src).astype(np.int64)
+    frac = (src - i0).astype(np.float32)
+    i1 = np.clip(i0 + 1, 0, in_size - 1)
+    i0 = np.clip(i0, 0, in_size - 1)
+    return i0, i1, frac
+
+
+def _resize_axis_linear(x: torch.Tensor, out_size: int, axis: int) -> torch.Tensor:
+    in_size = x.shape[axis]
+    if in_size == out_size:
+        return x
+    i0, i1, frac = _linear_index_weights(out_size, in_size)
+    shape = [1] * x.ndim
+    shape[axis] = out_size
+    frac = torch.from_numpy(frac).to(x.device).reshape(shape)
+    a = x.index_select(axis, _idx(i0, x.device))
+    b = x.index_select(axis, _idx(i1, x.device))
+    return a * (1.0 - frac) + b * frac
+
+
+def resize_bilinear(img: torch.Tensor, out_hw: Sequence[int],
+                    channel_dim: bool = None) -> torch.Tensor:
+    """cv2.resize(..., INTER_LINEAR) parity. `out_hw` = (H, W). A trailing
+    axis of size <= 4 counts as channels unless `channel_dim` says."""
+    h_ax = _channel_axes(img, channel_dim)
+    x = img.to(torch.float32)
+    x = _resize_axis_linear(x, int(out_hw[0]), h_ax)
+    x = _resize_axis_linear(x, int(out_hw[1]), h_ax + 1)
+    if not img.dtype.is_floating_point:
+        info = torch.iinfo(img.dtype)
+        return torch.clamp(torch.round(x), info.min, info.max).to(img.dtype)
+    return x.to(img.dtype)
+
+
+def _nearest_indices(out_size: int, in_size: int) -> np.ndarray:
+    scale = in_size / out_size
+    return np.minimum(np.floor(np.arange(out_size) * scale),
+                      in_size - 1).astype(np.int64)
+
+
+def resize_nearest(img: torch.Tensor, out_hw: Sequence[int],
+                   channel_dim: bool = None) -> torch.Tensor:
+    """cv2.resize(..., INTER_NEAREST) parity (src = floor(dst * scale))."""
+    h_ax = _channel_axes(img, channel_dim)
+    x = img.index_select(h_ax, _idx(_nearest_indices(int(out_hw[0]),
+                                                     img.shape[h_ax]), img.device))
+    return x.index_select(h_ax + 1, _idx(_nearest_indices(
+        int(out_hw[1]), img.shape[h_ax + 1]), img.device))
+
+
+def rotate90_ccw(img: torch.Tensor, channel_dim: bool = None) -> torch.Tensor:
+    """cv2.ROTATE_90_COUNTERCLOCKWISE (reference infer_two_stage_burr.py:276)."""
+    h_ax = _channel_axes(img, channel_dim)
+    return img.transpose(h_ax, h_ax + 1).flip(h_ax)
+
+
+# ---------------------------------------------------------------------------
+# separable filters
+# ---------------------------------------------------------------------------
+
+def _reflect101_indices(n: int, before: int, after: int) -> np.ndarray:
+    i = np.arange(-before, n + after)
+    i = np.where(i < 0, -i, i)
+    return np.where(i >= n, 2 * (n - 1) - i, i)
+
+
+def filter1d(x: torch.Tensor, kernel, axis: int) -> torch.Tensor:
+    """Correlate along one axis with BORDER_REFLECT_101; the terms are summed
+    in kernel order, as the reference sums them."""
+    k = np.asarray(kernel, dtype=np.float32)
+    r_before = (len(k) - 1) // 2
+    r_after = len(k) - 1 - r_before
+    n = x.shape[axis]
+    xp = x.to(torch.float32).index_select(
+        axis, _idx(_reflect101_indices(n, r_before, r_after), x.device))
+    out = None
+    for i, w in enumerate(k):
+        term = xp.narrow(axis, i, n) * float(w)
+        out = term if out is None else out + term
+    return out
+
+
+def sep_filter2d(img: torch.Tensor, kx, ky, channel_dim: bool = None) -> torch.Tensor:
+    """Separable 2-D correlation (rows with ky, cols with kx), REFLECT_101."""
+    h_ax = _channel_axes(img, channel_dim)
+    return filter1d(filter1d(img, ky, h_ax), kx, h_ax + 1)
+
+
+def gaussian_kernel1d(ksize: int, sigma: float) -> np.ndarray:
+    """cv2.getGaussianKernel parity, including the fixed small-kernel table
+    used when sigma <= 0 and the sigma-from-ksize formula."""
+    small_tab = {
+        1: [1.0],
+        3: [0.25, 0.5, 0.25],
+        5: [0.0625, 0.25, 0.375, 0.25, 0.0625],
+        7: [0.03125, 0.109375, 0.21875, 0.28125, 0.21875, 0.109375, 0.03125],
+    }
+    if sigma <= 0 and ksize in small_tab:
+        return np.asarray(small_tab[ksize], dtype=np.float32)
+    s = sigma if sigma > 0 else 0.3 * ((ksize - 1) * 0.5 - 1) + 0.8
+    c = (ksize - 1) * 0.5
+    x = np.arange(ksize, dtype=np.float64)
+    k = np.exp(-((x - c) ** 2) / (2 * s * s))
+    return (k / k.sum()).astype(np.float32)
+
+
+def gaussian_blur(img: torch.Tensor, ksize, sigma: float,
+                  channel_dim: bool = None) -> torch.Tensor:
+    """cv2.GaussianBlur parity (separable, REFLECT_101). `ksize` may be an int
+    or (kw, kh) like cv2; returns float32 (round yourself for uint8 parity)."""
+    kw, kh = ksize if isinstance(ksize, (tuple, list)) else (ksize, ksize)
+    one = np.asarray([1.0], np.float32)
+    kx = gaussian_kernel1d(int(kw), sigma) if kw > 1 else one
+    ky = gaussian_kernel1d(int(kh), sigma) if kh > 1 else one
+    return sep_filter2d(img, kx, ky, channel_dim)

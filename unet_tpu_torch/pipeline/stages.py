@@ -1,0 +1,221 @@
+"""The per-batch inspection step (counterpart of
+unet_tpu/pipeline/stages.py:62-72, 78-90, 141-179, 250-285, 339-364,
+490-611, 695-697).
+
+Slice 1 runs the branches the `two_stage` preset takes:
+  1. uint8 BGR frames -> float32 (optional rotate / normalize)
+  2. BGR -> RGB, bilinear resize to the model size, / 255
+  3. model forward, argmax, nearest resize back to the frame, ROI limit
+  4. the `canny_band` burr stage on a static crop around the ROI
+  5. class map (0 bg / 1 cable / 2 tape / 3 burr) and pixel counts
+Every other branch raises NotImplementedError naming its ROADMAP item.
+
+Frames and masks keep the JAX package's layout, (B, H, W, 3) and (B, H, W);
+the model sees NCHW.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Union
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from unet_tpu_torch.ops import cc as _cc
+from unet_tpu_torch.ops import color as _color
+from unet_tpu_torch.ops import edges as _edges
+from unet_tpu_torch.ops import image as _image
+from unet_tpu_torch.ops import morph as _morph
+from unet_tpu_torch.pipeline.config import BurrCfg, PipelineCfg
+
+
+class FrameOutputs(NamedTuple):
+    """Per-frame results of one batch."""
+    class_map: torch.Tensor  # (B, H, W) uint8: 0 bg / 1 cable / 2 tape / 3 burr
+    cable_px: torch.Tensor   # (B,) int32
+    tape_px: torch.Tensor    # (B,) int32
+    burr_px: torch.Tensor    # (B,) int32
+
+
+def _unsupported(cfg: PipelineCfg) -> None:
+    """Raise for the config branches later slices port."""
+    pp, seg, post = cfg.preprocess, cfg.segment, cfg.postprocess
+    todo = [
+        (pp.enhance, "preprocess.enhance: ROADMAP A9 (enhanced)"),
+        (pp.dynamic_roi, "preprocess.dynamic_roi: ROADMAP A11"),
+        (pp.letterbox, "preprocess.letterbox: ROADMAP A11"),
+        (pp.normalization != "unit", "preprocess.normalization: ROADMAP A11"),
+        (bool(seg.int8_scales), "segment.int8_scales: ROADMAP A7 (int8)"),
+        (seg.fast_forward, "segment.fast_forward: ROADMAP A2 (bf16 route)"),
+        (seg.threshold_mode != "argmax",
+         f"threshold_mode {seg.threshold_mode!r}: ROADMAP A11"),
+        (post.enabled or post.close_ksize > 0, "postprocess: ROADMAP A11"),
+        (cfg.geometry.enabled, "geometry: ROADMAP A10"),
+        (cfg.inspect.quality_stats or cfg.inspect.track_defects,
+         "inspect stats: ROADMAP A11"),
+        (cfg.burr.method not in ("canny_band", "none"),
+         f"burr method {cfg.burr.method!r}: ROADMAP A9/A11"),
+    ]
+    for bad, what in todo:
+        if bad:
+            raise NotImplementedError(f"{cfg.name}: {what}")
+
+
+# ---------------------------------------------------------------------------
+# preprocess
+# ---------------------------------------------------------------------------
+
+def geometric_preprocess(frames_bgr: torch.Tensor, cfg: PipelineCfg) -> torch.Tensor:
+    """uint8 BGR (B, H, W, 3) -> float32 BGR at the pipeline working
+    resolution (rotate / normalize only)."""
+    if frames_bgr.ndim != 4 or frames_bgr.shape[-1] != 3:
+        raise ValueError(
+            f"expected (B, H, W, 3) BGR frames, got {tuple(frames_bgr.shape)}")
+    x = frames_bgr.to(torch.float32)
+    if cfg.preprocess.rotate90_ccw:
+        x = _image.rotate90_ccw(x)
+    if cfg.preprocess.normalize_wh is not None:
+        w, h = cfg.preprocess.normalize_wh
+        x = _image.resize_bilinear(x, (h, w))
+    return x
+
+
+def model_input(frames_bgr: torch.Tensor, cfg: PipelineCfg) -> torch.Tensor:
+    """BGR float frames -> RGB / 255 at model resolution, (B, h, w, 3)
+    (reference preprocess_image, infer_two_stage_burr.py:122-127)."""
+    w, h = cfg.preprocess.model_size
+    x = _image.resize_bilinear(_color.bgr2rgb(frames_bgr), (h, w))
+    return x / 255.0
+
+
+def extract_masks(logits: torch.Tensor, cfg: PipelineCfg):
+    """logits (B, C, h, w) -> (cable, tape) bool masks at model resolution;
+    argmax mode (infer_two_stage_burr.py:299-300), first index on ties."""
+    pred = torch.argmax(logits, dim=1)
+    return pred == cfg.segment.cable_cls, pred == cfg.segment.tape_cls
+
+
+def roi_limit(mask: torch.Tensor, roi, frame_hw) -> torch.Tensor:
+    """Zero the mask outside the ROI (reference infer_two_stage_burr.py:310-314)."""
+    if roi is None:
+        return mask
+    h, w = frame_hw
+    r = roi.scaled((w, h)) if roi.space != (w, h) else roi
+    sel = torch.zeros((h, w), dtype=torch.bool, device=mask.device)
+    sel[max(r.y1, 0):min(r.y2, h), max(r.x1, 0):min(r.x2, w)] = True
+    return mask & sel
+
+
+# ---------------------------------------------------------------------------
+# burr detection (stage 2)
+# ---------------------------------------------------------------------------
+
+def burr_canny_band(gray: torch.Tensor, cable: torch.Tensor, b: BurrCfg) -> torch.Tensor:
+    """Two-stage burr detector (reference detect_burrs_on_cable,
+    infer_two_stage_burr.py:50-119): Canny edges inside the dilate-band,
+    close/open, then the CC area/aspect/size filter."""
+    band = _morph.outer_band(cable, _morph.ellipse_kernel(b.band_px))
+    blurred = torch.round(_image.gaussian_blur(gray, b.blur_ksize, b.blur_sigma,
+                                               channel_dim=False))
+    edges = _edges.canny(blurred, b.canny_low, b.canny_high)
+    cand = edges & band
+    cand = _morph.close_(cand, _morph.ellipse_kernel(b.close_ksize))
+    cand = _morph.open_(cand, _morph.ellipse_kernel(b.open_ksize))
+    return _cc.filter_components_by_geometry(
+        cand, b.min_area, b.max_area, max_aspect=b.max_aspect,
+        min_w=b.min_w, min_h=b.min_h, strict_min_wh=b.strict_min_wh)
+
+
+def roi_crop_box(cfg: PipelineCfg, frame_hw, margin: int = 24):
+    """(y1, y2, x1, x2) of the static burr crop around the ROI, exactly the
+    reference's box (stages.py:347-355), including the round-up of the width
+    to a multiple of 128 columns. 800x448 frames with ROI(140, 0, 270, 512)
+    give rows 0-448 and columns 183-567: a 448x384 crop."""
+    h, w = frame_hw
+    r = cfg.roi.scaled((w, h)) if cfg.roi.space != (w, h) else cfg.roi
+    pad = cfg.burr.band_px + max(cfg.burr.close_ksize, cfg.burr.open_ksize) + margin
+    x1 = max(r.x1 - pad, 0)
+    x2 = min(r.x2 + pad, w)
+    y1 = max(r.y1 - pad, 0)
+    y2 = min(r.y2 + pad, h)
+    x2 = min(x1 + ((x2 - x1 + 127) // 128) * 128, w)
+    return y1, y2, x1, x2
+
+
+def _burr_on_roi_crop(gray: torch.Tensor, cable: torch.Tensor,
+                      cfg: PipelineCfg, frame_hw) -> torch.Tensor:
+    """Run the burr stage on the static crop around the ROI and paste back.
+    Hysteresis and the CC filter both see the crop edge, so the box is part
+    of the result."""
+    y1, y2, x1, x2 = roi_crop_box(cfg, frame_hw)
+    crop = burr_canny_band(gray[..., y1:y2, x1:x2].contiguous(),
+                           cable[..., y1:y2, x1:x2].contiguous(), cfg.burr)
+    out = torch.zeros(gray.shape, dtype=torch.bool, device=gray.device)
+    out[..., y1:y2, x1:x2] = crop
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the step
+# ---------------------------------------------------------------------------
+
+@torch.inference_mode()
+def run_pipeline(model: nn.Module, frames_bgr: torch.Tensor,
+                 cfg: PipelineCfg) -> FrameOutputs:
+    """The full step over one (B, H, W, 3) uint8 BGR batch, on the device of
+    `frames_bgr` (the model must sit on the same device)."""
+    _unsupported(cfg)
+    frames = geometric_preprocess(frames_bgr, cfg)
+    B, H, W = frames.shape[:3]
+
+    x = model_input(frames, cfg).permute(0, 3, 1, 2).contiguous()
+    logits = model(x)
+    if isinstance(logits, (list, tuple)):
+        logits = logits[0]
+    cable_m, tape_m = extract_masks(logits, cfg)
+
+    cable = roi_limit(_image.resize_nearest(cable_m, (H, W), channel_dim=False),
+                      cfg.roi, (H, W))
+    tape = roi_limit(_image.resize_nearest(tape_m, (H, W), channel_dim=False),
+                     cfg.roi, (H, W))
+
+    # the reference skips the burr stage when no frame holds cable
+    # (infer_two_stage_burr.py:69-70)
+    if cfg.burr.method == "canny_band" and bool(cable.any()):
+        gray = _color.bgr2gray(frames)
+        if cfg.roi is not None:
+            burr = _burr_on_roi_crop(gray, cable, cfg, (H, W))
+        else:
+            burr = burr_canny_band(gray, cable, cfg.burr)
+    else:
+        burr = torch.zeros_like(cable)
+
+    class_map = torch.zeros((B, H, W), dtype=torch.uint8, device=cable.device)
+    class_map[cable] = 1
+    class_map[tape] = 2
+    class_map[burr] = 3
+    return FrameOutputs(
+        class_map=class_map,
+        cable_px=cable.sum(dim=(-2, -1), dtype=torch.int32),
+        tape_px=tape.sum(dim=(-2, -1), dtype=torch.int32),
+        burr_px=burr.sum(dim=(-2, -1), dtype=torch.int32),
+    )
+
+
+def build_step(model: nn.Module, cfg: PipelineCfg, device: Union[str, torch.device] = "cuda"
+               ) -> Callable[[Union[np.ndarray, torch.Tensor]], FrameOutputs]:
+    """Returns step(frames_u8_bgr) -> FrameOutputs on `device`. The model is
+    moved to `device` and put in eval mode; frames may be a numpy array or a
+    tensor and are moved to `device`. There is no fallback: a `cuda` step
+    without a card raises."""
+    _unsupported(cfg)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_step(device='cuda') needs a CUDA device")
+    model = model.to(device).eval()
+
+    def step(frames_bgr) -> FrameOutputs:
+        frames = torch.as_tensor(frames_bgr).to(device)
+        return run_pipeline(model, frames, cfg)
+
+    return step
