@@ -5,22 +5,29 @@
 Phases; any failure exits non-zero and prints no result line:
   1. device: needs CUDA (no CPU fallback); prints the card's name and power
      limit as nvidia-smi reports them
-  2. build: compiles every kernel of the path from csrc/ with nvcc (one
+  2. build: compiles every kernel of the paths from csrc/ with nvcc (one
      process per source, all started together)
-  3. kernels: each kernel against its plain PyTorch version on the card, bit
-     for bit, on the masks of tests/test_cc_pallas.py, on noise and
-     serpentine masks at the main path's shapes, and on the inputs the main
-     path gives it, at truncated and full `max_iters`; times each
-  4. slice: the two_stage step at full width (NestedUNet 3-class, 512^2
-     model input, 800x448 frames, fp32 without TF32, weights from a numpy
-     seed); the main path with a fixed colour->class model, whose outputs
-     must equal the same step on the CPU; launch counts; ms per batch and
-     frames/s at b=8 and b=32
+  3. main paths, each driven once with every launch count set to 0 just
+     before and read just after, with a fixed colour->class model:
+     `two_stage` (b=8, 800x448; outputs equal to the same step on the CPU)
+     and `enhanced` (b=8, 800x448 input turned to 448x800; class maps agree
+     >= 0.999 with the CPU route at b=2)
+  4. kernels: B1 (cc_propagate) against its plain version bit for bit, on
+     the masks of tests/test_cc_pallas.py, on noise and serpentine masks at
+     both paths' crop shapes, and on the inputs each path gives it, at
+     truncated and full `max_iters`; B2 (nlm) against its plain version
+     within rtol 2e-5 / atol 2e-3, on the test sizes, on a noise stack with
+     ragged tiles and on the three inputs the enhanced path gives it; times
+     each at the main path's inputs beside its bound
+  5. the NestedUNet (3-class, 512^2 model input, fp32 without TF32, weights
+     from a numpy seed): logits against the CPU, then ms per batch and
+     frames/s of both presets at b=8 and b=32, and a profile of one b=32
+     step of each
 Then, on the last two lines, the kernels' JSON record and
 {"ok": true, "device": {...}}.
 
-The scene generator and the colour->class model live here so the CPU
-tests (tests/test_torch_pipeline.py) drive the same inputs.
+The scene generators and the colour->class model live here so the CPU
+tests (tests/test_torch_pipeline.py and others) drive the same inputs.
 """
 from __future__ import annotations
 
@@ -33,8 +40,13 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-MEM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
-INT_OPS_PER_S = 67e12        # H100 SXM non-tensor-core fp32 peak, used for int32 min/compare
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and the non-tensor-core
+# fp32 rate, used for fp32 arithmetic and for int32 min/compare alike
+MEM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 67e12
+FP32_OPS_PER_S = 67e12
+SFU_PER_SM_PER_CLOCK = 16     # exp2 (MUFU) results per SM per clock on Hopper
+NLM_TOL = dict(rtol=2e-5, atol=2e-3)   # the gate of tests/test_nlm_pallas.py
 
 
 # ---------------------------------------------------------------------------
@@ -42,17 +54,21 @@ INT_OPS_PER_S = 67e12        # H100 SXM non-tensor-core fp32 peak, used for int3
 # ---------------------------------------------------------------------------
 
 def synthetic_frames(batch: int, h: int, w: int, seed: int = 0,
-                     patch: int = 16) -> np.ndarray:
-    """(batch, h, w, 3) uint8 BGR cable scenes: textured background, a
-    vertical cable strip inside the two_stage ROI, a tape band, and textured
-    patches inside the cable that the burr stage finds (a fixed
-    colour->class model reads them as holes, whose dense Canny edges survive
-    close/open and the CC gates)."""
+                     patch: int = 16, texture: bool = True,
+                     noise: float = 6.0) -> np.ndarray:
+    """(batch, h, w, 3) uint8 BGR cable scenes: a background (textured, or
+    flat at 55 with `texture=False`), a vertical cable strip inside the
+    two_stage ROI, a tape band, textured patches inside the cable that the
+    burr stage finds (a fixed colour->class model reads them as holes, whose
+    dense edges survive close/open and the CC gates), and sensor noise of
+    sigma `noise`. The enhanced preset's CLAHE stretches a textured, noisy
+    background until every pixel is an edge; its scenes are flat with
+    noise 2 (`enhanced_scenes`)."""
     out = np.empty((batch, h, w, 3), np.uint8)
     x1, x2 = int(w * 0.35), int(w * 0.45)
     for i in range(batch):
         r = np.random.default_rng(seed + i)
-        bgr = r.uniform(40, 70, (h, w, 3))
+        bgr = r.uniform(40, 70, (h, w, 3)) if texture else np.full((h, w, 3), 55.0)
         bgr[:, x1:x2] = (180, 180, 175)
         ty = (h // 3, h // 2)
         bgr[ty[0]:ty[1], x1 - 4:x2 + 4] = (60, 90, 200)
@@ -62,9 +78,31 @@ def synthetic_frames(batch: int, h: int, w: int, seed: int = 0,
         for _ in range(4):
             py = int(r.integers(4, h - patch - 4))
             bgr[py:py + patch, px:px + patch] = checker
-        bgr += r.normal(0, 6, (h, w, 3))
+        bgr += r.normal(0, noise, (h, w, 3))
         out[i] = np.clip(bgr, 0, 255).astype(np.uint8)
     return out
+
+
+def enhanced_scenes(batch: int, h: int, w: int, seed: int = 0,
+                    patch: int = 16) -> np.ndarray:
+    """Input of the enhanced preset, (batch, w, h, 3) uint8 BGR: the flat,
+    low-noise scenes of `synthetic_frames` turned clockwise, so that the
+    preset's counter-clockwise turn gives back an h x w frame with a
+    vertical cable at x 0.35-0.45 w, inside its ROI (x 200-600 of 800)."""
+    f = synthetic_frames(batch, h, w, seed=seed, patch=patch, texture=False, noise=2.0)
+    return np.ascontiguousarray(np.rot90(f, k=-1, axes=(1, 2)))
+
+
+def noisy_planes(shape, seed: int = 0) -> np.ndarray:
+    """float32 planes on 0-255: a smooth pattern with a step edge plus
+    sensor noise (sigma 6), so that many patches look alike and the NLM
+    weights are far from 0 (on uniform noise every weight but the centre's
+    underflows, and any denoiser passes)."""
+    H, W = shape[-2:]
+    yy, xx = np.mgrid[0:H, 0:W]
+    base = 110 + 40 * np.sin(xx / 7.0) * np.cos(yy / 11.0) + 50 * (xx > W // 2)
+    r = np.random.default_rng(seed)
+    return np.clip(base + r.normal(0, 6, shape), 0, 255).astype(np.float32)
 
 
 class ColourClassModel(nn.Module):
@@ -177,10 +215,46 @@ def _bound_ms(state0, fg, pool_iters, iters):
     return (ops_ms, "operations") if ops_ms > bytes_ms else (bytes_ms, "bytes")
 
 
-def phase_kernels(recorded):
-    """Kernel vs plain version, bit for bit; timing at the main path's
-    inputs. `recorded` holds the (state0, fg, kwargs) of each main-path call.
-    Returns (per-launch records, max abs error seen)."""
+def _nlm_weight_pairs(shape, search):
+    """(pairs, updates) of NLM on a (B, H, W) stack: `updates` counts the
+    pixel-offsets that update an output, B*H*W*(search^2 - 1), the centre
+    left out (its weight is exp(0) = 1). Every other weight is symmetric:
+    d2(p, o) sums the same squares as d2(p + o, -o), so one weight serves
+    the unordered pair {p, p + o}. `pairs` counts those pairs: the
+    (H - |dy|)(W - |dx|) pixel-offsets with both ends inside the plane come
+    twice among the updates, the border ones whose other end lies in the
+    reflect pad once."""
+    B, H, W = shape
+    r = search // 2
+    updates = B * H * W * (search * search - 1)
+    inside = B * ((search * H - r * (r + 1)) * (search * W - r * (r + 1)) - H * W)
+    return updates - inside // 2, updates
+
+
+def _nlm_bound_ms(x, template, search, sms, clock_hz):
+    """Least time for one NLM launch on the (B, H, W) stack `x`, and what
+    bounds it (`_nlm_weight_pairs` counts the work). Per weight pair: one
+    exp at the SFU rate (16 per SM per clock at `clock_hz`) and 7 fp32
+    operations (the difference, its square, a running box sum of one add
+    and one subtract per axis, the scale); per update, 3 more (num += w * x
+    as one FMA of 2 operations, den += w), all at the fp32 peak; each input
+    byte read once and each output byte written once at the HBM rate.
+    Returns (ms, "bytes" or "operations", the three times)."""
+    pairs, updates = _nlm_weight_pairs(tuple(x.shape), search)
+    parts = {
+        "bytes": 2 * x.numel() * 4 / MEM_BYTES_PER_S * 1e3,
+        "fp32": (7 * pairs + 3 * updates) / FP32_OPS_PER_S * 1e3,
+        "exp": pairs / (sms * SFU_PER_SM_PER_CLOCK * clock_hz) * 1e3,
+    }
+    worst = max(parts, key=parts.get)
+    return parts[worst], ("bytes" if worst == "bytes" else "operations"), parts
+
+
+def phase_cc(recorded):
+    """B1 against its plain version, bit for bit; timing at the main paths'
+    inputs. `recorded` maps a site ("two_stage/hysteresis", ...) to the
+    (state0, fg, kwargs) of that main-path call. Returns (per-launch
+    records, max abs error seen)."""
     from unet_tpu_torch.ops import cc, cc_kernels
 
     max_err = 0
@@ -201,16 +275,17 @@ def phase_kernels(recorded):
         fg = torch.from_numpy(m).cuda()
         for mi in (1, 2, 64):
             check(cc._bbox_seed_state(fg), fg, f"test mask {i}", pool_iters=4, max_iters=mi)
-    for name, m in (("noise", rng.random((8, 448, 384)) < 0.35),
-                    ("serpentine", _serpentine(8, 448, 384))):
-        fg = torch.from_numpy(m).cuda()
-        seed = np.where(rng.random(m.shape) < 0.1, 0, 1).astype(np.int32)[:, None]
-        for mi in (1, 2, 16):   # hysteresis shape: strong=0 / weak=1 seeds
-            check(torch.from_numpy(seed).cuda(), fg, f"{name} (8,1,448,384)",
-                  pool_iters=16, max_iters=mi)
-        for mi in (1, 2, 64):   # CC filter shape: label/bbox seeds
-            check(cc._bbox_seed_state(fg), fg, f"{name} (8,4,448,384)",
-                  pool_iters=4, max_iters=mi)
+    for w in (384, 512):        # the two_stage and enhanced crop widths
+        for name, m in (("noise", rng.random((8, 448, w)) < 0.35),
+                        ("serpentine", _serpentine(8, 448, w))):
+            fg = torch.from_numpy(m).cuda()
+            seed = np.where(rng.random(m.shape) < 0.1, 0, 1).astype(np.int32)[:, None]
+            for mi in (1, 2, 16):   # hysteresis shape: strong=0 / weak=1 seeds
+                check(torch.from_numpy(seed).cuda(), fg, f"{name} (8,1,448,{w})",
+                      pool_iters=16, max_iters=mi)
+            for mi in (1, 2, 64):   # CC filter shape: label/bbox seeds
+                check(cc._bbox_seed_state(fg), fg, f"{name} (8,4,448,{w})",
+                      pool_iters=4, max_iters=mi)
     per_launch = []
     for site, (state0, fg, kw) in recorded.items():
         for mi in (1, 2, kw["max_iters"]):
@@ -226,28 +301,101 @@ def phase_kernels(recorded):
         _log(f"kernel cc_propagate {site} {tuple(state0.shape)} pool {kw['pool_iters']} "
              f"max {kw['max_iters']} ({iters} iterations run): {ms:.4f} ms/launch, "
              f"plain {plain_ms:.4f} ms, bound {bound:.5f} ms ({bound_by})")
-    _log(f"kernels: {n} comparisons with the plain version, all bit-identical")
+    _log(f"kernels: cc_propagate, {n} comparisons with the plain version, all bit-identical")
     return per_launch, max_err
 
 
-def _record_main_path_inputs(step, frames):
-    """Run the step once, keeping a copy of every cc_propagate input."""
-    from unet_tpu_torch.ops import cc_kernels
+def phase_nlm(recorded, sms, clock_hz):
+    """B2 against its plain version within NLM_TOL; timing at the enhanced
+    path's inputs. `recorded` maps a site ("enhanced/nlm_L", ...) to the
+    (x, h, template, search) of that main-path call. Returns (per-launch
+    records, max abs error seen)."""
+    from unet_tpu_torch.ops import nlm_kernels
 
-    recorded = {}
-    real = cc_kernels.propagate
+    max_err = 0.0
+    n = 0
 
-    def spy(state0, fg, **kw):
+    def check(x, h, template, search, what):
+        nonlocal max_err, n
+        got = nlm_kernels.nlm(x, h, template, search)
+        want = nlm_kernels.nlm_plain(x, h, template, search)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        max_err = max(max_err, err)
+        n += 1
+        if not torch.allclose(got, want, **NLM_TOL):
+            raise AssertionError(f"nlm != plain on {what} h={h} template={template} "
+                                 f"search={search}: max abs err {err}")
+
+    rng = np.random.default_rng(99)
+    for search, template in ((9, 5), (21, 7)):       # tests/test_nlm_pallas.py sizes
+        for img in ((rng.random((2, 40, 56)) * 255).astype(np.float32),
+                    noisy_planes((2, 40, 56), seed=3)):
+            check(torch.from_numpy(img).cuda(), 10.0, template, search,
+                  "test size (2,40,56)")
+    # 474 x 826 leaves ragged tiles on both axes
+    check(torch.from_numpy(noisy_planes((8, 474, 826), seed=4)).cuda(), 10.0, 7, 21,
+          "noise stack (8,474,826)")
+    per_launch = []
+    for site, (x, h, template, search) in recorded.items():
+        check(x, h, template, search, f"main-path {site} {tuple(x.shape)}")
+        ms = _time_ms(lambda: nlm_kernels.nlm(x, h, template, search), reps=10)
+        plain_ms = _time_ms(lambda: nlm_kernels.nlm_plain(x, h, template, search), reps=2)
+        bound, bound_by, parts = _nlm_bound_ms(x, template, search, sms, clock_hz)
+        per_launch.append(dict(site=site, shape=list(x.shape), h=h, template=template,
+                               search=search, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                               bound_by=bound_by, bound_parts_ms=parts))
+        _log(f"kernel nlm {site} {tuple(x.shape)} h {h} template {template} search "
+             f"{search}: {ms:.4f} ms/launch, plain {plain_ms:.4f} ms, bound {bound:.5f} ms "
+             f"({bound_by}; exp {parts['exp']:.5f}, fp32 {parts['fp32']:.5f}, "
+             f"bytes {parts['bytes']:.5f})")
+    _log(f"kernels: nlm, {n} comparisons with the plain version, max abs err {max_err:.3e} "
+         f"(gate rtol {NLM_TOL['rtol']}, atol {NLM_TOL['atol']})")
+    return per_launch, max_err
+
+
+def _record_main_path_inputs(step, frames, path: str):
+    """Run the step once, keeping a copy of every kernel input: returns
+    ({site: (state0, fg, kwargs)} for cc_propagate, {site: (x, h, template,
+    search)} for nlm, whose calls come as L, a, b)."""
+    from unet_tpu_torch.ops import cc_kernels, nlm_kernels
+
+    cc_rec, nlm_rec = {}, {}
+    real_cc, real_nlm = cc_kernels.propagate, nlm_kernels.nlm
+
+    def cc_spy(state0, fg, **kw):
         site = "hysteresis" if state0.shape[1] == 1 else "cc_filter"
-        recorded[site] = (state0.clone(), fg.clone(), kw)
-        return real(state0, fg, **kw)
+        cc_rec[f"{path}/{site}"] = (state0.clone(), fg.clone(), kw)
+        return real_cc(state0, fg, **kw)
 
-    cc_kernels.propagate = spy
+    def nlm_spy(x, h, template=7, search=21):
+        nlm_rec[f"{path}/nlm_{'Lab'[len(nlm_rec)]}"] = (x.clone(), h, template, search)
+        return real_nlm(x, h, template, search)
+
+    cc_kernels.propagate, nlm_kernels.nlm = cc_spy, nlm_spy
     try:
         step(frames)
     finally:
-        cc_kernels.propagate = real
-    return recorded
+        cc_kernels.propagate, nlm_kernels.nlm = real_cc, real_nlm
+    return cc_rec, nlm_rec
+
+
+def _drive(step, frames, expect, what):
+    """One batch through `step` with every launch count set to 0 just
+    before and read just after; fails unless each kernel launched exactly
+    as `expect` says. Returns (outputs, counts)."""
+    from unet_tpu_torch.ops import cc_kernels, nlm_kernels
+
+    torch.cuda.synchronize()
+    cc_kernels.launches = 0
+    nlm_kernels.launches = 0
+    out = step(frames)
+    torch.cuda.synchronize()
+    got = {"cc_propagate": cc_kernels.launches, "nlm": nlm_kernels.launches}
+    _log(f"main path ({what}): launches {got}")
+    if got != expect:
+        raise AssertionError(f"{what}: expected launches {expect}, got {got}")
+    return out, got
 
 
 def _check_outputs(out, b, h, w, what):
@@ -280,11 +428,12 @@ def _conv_gflop(model: nn.Module, hw) -> float:
     return total / 1e9
 
 
-def _profile_step(step, frames, step_ms: float) -> None:
+def _profile_step(step, frames, step_ms: float, what: str) -> None:
     """Device busy time over one step (torch.profiler with CUDA activity),
-    its share of `step_ms` (the same step timed without the profiler), and
-    the kernels that take the time. Diagnostic only: a profiler that records
-    no device time is reported, not treated as a fault of the port."""
+    its share of `step_ms` (the same step timed without the profiler), the
+    share of each hand-written kernel, and the kernels that take the time.
+    Diagnostic only: a profiler that records no device time is reported,
+    not treated as a fault of the port."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -297,12 +446,26 @@ def _profile_step(step, frames, step_ms: float) -> None:
     dev = lambda e: getattr(e, "self_device_time_total", 0) or 0
     busy = sum(dev(e) for e in evts)
     if busy <= 0:
-        _log("profile: the profiler recorded no device time")
+        _log(f"profile ({what}): the profiler recorded no device time")
         return
-    _log(f"profile (one b={frames.shape[0]} step): device busy {busy / 1e3:.3f} ms of "
-         f"{step_ms:.3f} ms per step, idle share {max(0.0, 1 - busy / 1e3 / step_ms):.4f}")
+    _log(f"profile ({what}, one b={frames.shape[0]} step): device busy {busy / 1e3:.3f} ms "
+         f"of {step_ms:.3f} ms per step, idle share {max(0.0, 1 - busy / 1e3 / step_ms):.4f}")
+    for name in ("nlm_kernel", "cc_propagate_kernel"):
+        t = sum(dev(e) for e in evts if name in e.key)
+        _log(f"  {name}: {t / 1e3:.3f} ms, {t / busy:.4f} of device busy time")
     for e in sorted(evts, key=dev, reverse=True)[:12]:
         _log(f"  {dev(e) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+
+
+def _time_step(step, frames, reps: int = 5) -> float:
+    """ms per batch: host clock around `reps` steps ending in a synchronize."""
+    step(frames)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        step(frames)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / reps * 1e3
 
 
 def main() -> int:
@@ -312,60 +475,84 @@ def main() -> int:
               "and this script has no CPU fallback", file=sys.stderr)
         return 1
     from unet_tpu_torch import _build
-    from unet_tpu_torch.ops import cc_kernels
     from unet_tpu_torch.pipeline import presets, stages
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     card = smi.splitlines()[0]
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     _log(f"device: {torch.cuda.get_device_name(0)} | torch {torch.__version__} "
-         f"cuda {torch.version.cuda} | count {torch.cuda.device_count()}")
+         f"cuda {torch.version.cuda} | count {torch.cuda.device_count()} | "
+         f"{sms} SMs, max SM clock {clock_mhz:.0f} MHz")
     _log(card)
 
     t = time.time()
-    built = _build.build_all(["cc_propagate"])
+    built = _build.build_all(["cc_propagate", "nlm"])
     _log(f"build: {len(built)} kernel source(s) in {time.time() - t:.1f} s")
     for name, (path, log) in built.items():
         _log(f"  {name}: {path.name}\n" + "\n".join("    " + l for l in log.splitlines()))
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = presets.two_stage()
     H, W = 448, 800
+    cfgs = {"two_stage": presets.two_stage(), "enhanced": presets.enhanced()}
+    expect = {"two_stage": {"cc_propagate": 2, "nlm": 0},
+              "enhanced": {"cc_propagate": 2, "nlm": 3}}
+    scenes = {"two_stage": lambda b, seed: synthetic_frames(b, H, W, seed=seed),
+              "enhanced": lambda b, seed: enhanced_scenes(b, H, W, seed=seed)}
 
-    # -- the main path: fabricated logits so cable, tape and burr candidates exist
-    colour_cuda = stages.build_step(ColourClassModel(), cfg, device="cuda")
-    frames8 = torch.from_numpy(synthetic_frames(8, H, W, seed=0)).cuda()
-    recorded = _record_main_path_inputs(colour_cuda, frames8)
-    torch.cuda.synchronize()
-    cc_kernels.launches = 0
-    out = colour_cuda(frames8)
-    torch.cuda.synchronize()
-    launches = cc_kernels.launches
-    _log(f"main path (two_stage, colour->class model, b=8, 800x448, model 512^2): "
-         f"cc_propagate launches {launches}")
-    if launches != 2:
-        raise AssertionError(f"expected 2 cc_propagate launches per batch, got {launches}")
-    _check_outputs(out, 8, H, W, "colour run")
-    t = time.time()
-    ref = stages.build_step(ColourClassModel(), cfg, device="cpu")(frames8.cpu())
-    _log(f"  same step on the CPU (plain versions): {time.time() - t:.1f} s")
-    for name in ("class_map", "cable_px", "tape_px", "burr_px"):
-        if not torch.equal(getattr(out, name).cpu(), getattr(ref, name)):
-            raise AssertionError(f"colour run: {name} differs between cuda and cpu")
-    _log(f"  cuda == cpu for class_map and px counts; burr_px {out.burr_px.tolist()}, "
-         f"cable_px {out.cable_px.tolist()}")
-    if int(out.burr_px.sum()) == 0:
-        raise AssertionError("colour run found no burr: the CC filter path was not exercised")
+    # -- the main paths: fabricated logits so cable, tape and burr candidates exist
+    cc_rec, nlm_rec, counts = {}, {}, {}
+    for path, cfg in cfgs.items():
+        colour_cuda = stages.build_step(ColourClassModel(), cfg, device="cuda")
+        frames8 = torch.from_numpy(scenes[path](8, 0)).cuda()
+        rec = _record_main_path_inputs(colour_cuda, frames8, path)
+        cc_rec.update(rec[0])
+        nlm_rec.update(rec[1])
+        out, counts[path] = _drive(colour_cuda, frames8, expect[path],
+                                   f"{path}, colour->class model, b=8, 800x448, model 512^2")
+        _check_outputs(out, 8, H, W, f"{path} colour run")
+        if int(out.burr_px.sum()) == 0:
+            raise AssertionError(f"{path} colour run found no burr: the CC filter path "
+                                 f"was not exercised")
+        colour_cpu = stages.build_step(ColourClassModel(), cfg, device="cpu")
+        if path == "two_stage":
+            t = time.time()
+            ref = colour_cpu(frames8.cpu())
+            _log(f"  same step on the CPU (plain versions): {time.time() - t:.1f} s")
+            for name in ("class_map", "cable_px", "tape_px", "burr_px"):
+                if not torch.equal(getattr(out, name).cpu(), getattr(ref, name)):
+                    raise AssertionError(f"{path} colour run: {name} differs between cuda and cpu")
+            _log(f"  cuda == cpu for class_map and px counts; burr_px {out.burr_px.tolist()}, "
+                 f"cable_px {out.cable_px.tolist()}")
+        else:
+            # the CPU's NLM is slow: compare the first two frames
+            t = time.time()
+            ref = colour_cpu(frames8[:2].cpu())
+            _log(f"  same step on the CPU (plain versions), b=2: {time.time() - t:.1f} s")
+            got = colour_cuda(frames8[:2])
+            agree = float((got.class_map.cpu() == ref.class_map).float().mean())
+            for name in ("cable_px", "tape_px", "burr_px"):
+                _log(f"  {name}: cuda {getattr(got, name).tolist()} cpu "
+                     f"{getattr(ref, name).tolist()}")
+            _log(f"  class_map agreement cuda vs cpu (b=2): {agree:.6f}; b=8 burr_px "
+                 f"{out.burr_px.tolist()}")
+            if agree < 0.999:
+                raise AssertionError(f"{path} colour run: class maps agree {agree} < 0.999")
 
     # -- kernels against their plain versions, and their times
-    per_launch, max_err = phase_kernels(recorded)
+    cc_launch, cc_err = phase_cc(cc_rec)
+    nlm_launch, nlm_err = phase_nlm(nlm_rec, sms, clock_mhz * 1e6)
 
     # -- NestedUNet at full width
     model = seeded_nested_unet()
-    x1 = stages.model_input(stages.geometric_preprocess(frames8[:1].cpu(), cfg),
-                            cfg).permute(0, 3, 1, 2).contiguous()
+    frames1 = torch.from_numpy(scenes["two_stage"](1, 0))
+    x1 = stages.model_input(stages.geometric_preprocess(frames1, cfgs["two_stage"]),
+                            cfgs["two_stage"]).permute(0, 3, 1, 2).contiguous()
     with torch.inference_mode():
         want = model(x1)
         got = model.cuda()(x1.cuda()).cpu()
@@ -374,56 +561,45 @@ def main() -> int:
     _log(f"NestedUNet 512^2 logits cuda vs cpu: max abs err {err:.3e}, argmax agreement {agree:.6f}")
     if not torch.allclose(got, want, atol=1e-3, rtol=1e-3):
         raise AssertionError(f"NestedUNet cuda logits differ from cpu by {err}")
-    step = stages.build_step(model, cfg, device="cuda")
     gflop = _conv_gflop(model, (512, 512))
     _log(f"NestedUNet 512^2 forward: {gflop:.2f} GFLOP per frame (convolutions)")
     timings = {}
-    for b in (8, 32):
-        frames = torch.from_numpy(synthetic_frames(b, H, W, seed=10)).cuda()
-        torch.cuda.synchronize()
-        cc_kernels.launches = 0
-        outb = step(frames)
-        torch.cuda.synchronize()
-        unet_launches = cc_kernels.launches
-        _log(f"main path (two_stage, NestedUNet 512^2, b={b}, 800x448): "
-             f"cc_propagate launches {unet_launches}")
-        if unet_launches != 2:
-            raise AssertionError(f"NestedUNet b={b}: expected 2 cc_propagate launches, "
-                                 f"got {unet_launches}")
-        if b == 8:
-            launches = unet_launches
-        _check_outputs(outb, b, H, W, f"NestedUNet b={b}")
-        reps = 5
-        t = time.perf_counter()
-        for _ in range(reps):
-            outb = step(frames)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t) / reps * 1e3
-        x = stages.model_input(stages.geometric_preprocess(frames, cfg),
-                               cfg).permute(0, 3, 1, 2).contiguous()
-        with torch.inference_mode():
-            fwd_ms = _time_ms(lambda: model(x), reps=reps)
-        _log(f"two_stage NestedUNet fp32 b={b}: {ms:.3f} ms/batch, {b / ms * 1e3:.2f} frames/s; "
-             f"forward alone {fwd_ms:.3f} ms = {gflop * b / fwd_ms:.2f} TFLOP/s "
-             f"(device-resident frames; "
-             f"cable_px {outb.cable_px[:4].tolist()}...) [{card}]")
-        timings[b] = dict(ms=ms, forward_ms=fwd_ms)
-    _profile_step(step, frames, timings[32]["ms"])
+    for path in ("enhanced", "two_stage"):
+        cfg = cfgs[path]
+        step = stages.build_step(model, cfg, device="cuda")
+        timings[path] = {}
+        for b in (8, 32):
+            frames = torch.from_numpy(scenes[path](b, 10)).cuda()
+            outb, _ = _drive(step, frames, expect[path], f"{path}, NestedUNet 512^2, b={b}")
+            _check_outputs(outb, b, H, W, f"{path} NestedUNet b={b}")
+            ms = _time_step(step, frames)
+            x = stages.model_input(stages.preprocess_frames(frames, cfg),
+                                   cfg).permute(0, 3, 1, 2).contiguous()
+            with torch.inference_mode():
+                fwd_ms = _time_ms(lambda: model(x), reps=5)
+            _log(f"{path} NestedUNet fp32 b={b}: {ms:.3f} ms/batch, {b / ms * 1e3:.2f} frames/s; "
+                 f"forward alone {fwd_ms:.3f} ms = {gflop * b / fwd_ms:.2f} TFLOP/s "
+                 f"(device-resident frames; cable_px {outb.cable_px[:4].tolist()}...) [{card}]")
+            timings[path][b] = dict(ms=ms, frames_per_s=b / ms * 1e3, forward_ms=fwd_ms)
+        _profile_step(step, frames, timings[path][32]["ms"], f"{path} NestedUNet")
 
-    total = {k: sum(p[k] for p in per_launch) for k in ("ms", "plain_ms", "bound_ms")}
-    record = {"kernels": [{
-        "name": "cc_propagate",
-        "route": "cuda",
-        "source": "unet_tpu_torch/csrc/cc_propagate.cu",
-        "replaces": "unet_tpu/ops/cc_pallas.py:169",
-        "launches": launches,
-        "max_abs_err": max_err,
-        # ms / plain_ms / bound_ms: both main-path launches of one b=8 batch
-        "ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
-        "bound_by": max(per_launch, key=lambda p: p["bound_ms"])["bound_by"],
-        "library_ms": None,
-        "per_launch": per_launch,
-    }], "slice_ms_per_batch": timings, "card": card,
+    def entry(name, source, replaces, per_launch, max_err, by_path):
+        # ms / plain_ms / bound_ms: every counted main-path launch of one b=8
+        # batch per path, summed, to match `launches`
+        total = {k: sum(p[k] for p in per_launch) for k in ("ms", "plain_ms", "bound_ms")}
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": sum(by_path.values()), "launches_per_path": by_path,
+                "max_abs_err": max_err, **total,
+                "bound_by": max(per_launch, key=lambda p: p["bound_ms"])["bound_by"],
+                "library_ms": None, "per_launch": per_launch}
+
+    record = {"kernels": [
+        entry("cc_propagate", "unet_tpu_torch/csrc/cc_propagate.cu",
+              "unet_tpu/ops/cc_pallas.py:169", cc_launch, cc_err,
+              {p: c["cc_propagate"] for p, c in counts.items()}),
+        entry("nlm", "unet_tpu_torch/csrc/nlm.cu", "unet_tpu/ops/nlm_pallas.py:96",
+              nlm_launch, nlm_err, {p: c["nlm"] for p, c in counts.items() if c["nlm"]}),
+    ], "slice_ms_per_batch": timings, "card": card,
         "seconds": round(time.time() - t_start, 1)}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

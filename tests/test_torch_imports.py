@@ -21,7 +21,8 @@ def _modules():
 
 def test_every_module_imports_without_jax():
     mods = ["unet_tpu_torch"] + _modules() + ["chip_smoke"]
-    assert "unet_tpu_torch.ops.cc_kernels" in mods
+    for m in ("cc_kernels", "nlm_kernels", "clahe", "frames"):
+        assert f"unet_tpu_torch.ops.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -1,12 +1,13 @@
-"""The port's two_stage step (unet_tpu_torch.pipeline.stages) against the JAX
-package's, end to end at model_size 64x64 on synthetic cable scenes."""
+"""The port's two_stage and enhanced steps (unet_tpu_torch.pipeline.stages)
+against the JAX package's, end to end at model_size 64x64 on synthetic cable
+scenes."""
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 import torch
 
-from chip_smoke import ColourClassModel, synthetic_frames
+from chip_smoke import ColourClassModel, enhanced_scenes, synthetic_frames
 from unet_tpu.models import NestedUNet as JNestedUNet
 from unet_tpu.pipeline import presets as jpresets
 from unet_tpu.pipeline import stages as jstages
@@ -58,6 +59,13 @@ def _assert_same(got, want):
 def test_crop_box_is_448x384():
     y1, y2, x1, x2 = stages.roi_crop_box(presets.two_stage(), (448, 800))
     assert (y1, y2, x1, x2) == (0, 448, 183, 567)
+
+
+def test_crop_box_enhanced_is_448x512():
+    # ROI(200, 0, 600, 448) in (800, 448), pad 25 + 5 + 24 = 54, width
+    # rounded up to 512
+    y1, y2, x1, x2 = stages.roi_crop_box(presets.enhanced(), (448, 800))
+    assert (y1, y2, x1, x2) == (0, 448, 146, 658)
 
 
 @pytest.mark.parametrize("seed", [0, 3])
@@ -112,11 +120,43 @@ def test_two_stage_nested_unet_shared_weights():
     _assert_same(got, want)
 
 
+@pytest.mark.parametrize("seed,denoise", [(0, "nlm"), (2, "nlm"), (2, "bilateral"),
+                                          (0, "none")])
+def test_enhanced_colour_model_matches_jax(seed, denoise):
+    """The enhanced step at normalize_wh (200, 112): scenes rotated
+    clockwise, so that the preset's counter-clockwise turn gives back a
+    vertical cable inside ROI x 200-600 of 800. Flat backgrounds with noise 2
+    keep CLAHE from turning the background into edges. The enhanced frames
+    differ from the JAX package's in the last float bits (exp, pow), so the
+    class maps are held at agreement >= 0.999; on these scenes they are
+    equal."""
+    H2, W2 = 112, 200
+    frames = enhanced_scenes(2, H2, W2, seed=seed, patch=14)
+    assert frames.shape == (2, W2, H2, 3)
+    jcfg = jpresets.enhanced(denoise=denoise).replace_in(
+        "preprocess", normalize_wh=(W2, H2), model_size=(64, 64))
+    cfg = presets.enhanced(denoise=denoise).replace_in(
+        "preprocess", normalize_wh=(W2, H2), model_size=(64, 64))
+    want = jstages.build_step(_JColourClassModel(), jcfg)({}, jnp.asarray(frames))
+    got = stages.build_step(ColourClassModel(), cfg, device="cpu")(frames)
+    assert got.class_map.shape == (2, H2, W2)
+    agree = float((got.class_map.numpy() == np.asarray(want.class_map)).mean())
+    assert agree >= 0.999, agree
+    assert got.cable_px.min() > 0 and got.tape_px.min() > 0
+    if denoise == "nlm":     # the other denoisers leave no burr on these scenes
+        assert got.burr_px.sum() > 0, "no burr candidate survived: stage 2 untested"
+        for name in ("cable_px", "tape_px", "burr_px"):
+            np.testing.assert_allclose(getattr(got, name).numpy(),
+                                       np.asarray(getattr(want, name)), atol=2)
+
+
 def test_unported_branches_raise():
     model = ColourClassModel()
-    for name in ("enhanced", "wrap_uniformity", "robust", "spatial", "roi_first"):
+    for name in ("video_full", "wrap_uniformity", "robust", "spatial", "roi_first"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             stages.build_step(model, presets.get_preset(name), device="cpu")
+    with pytest.raises(NotImplementedError, match="A9"):
+        stages.build_step(model, presets.enhanced(denoise="median"), device="cpu")
     with pytest.raises(NotImplementedError, match="A13"):
         NestedUNet(num_classes=3, pretrained_encoder=True)
 

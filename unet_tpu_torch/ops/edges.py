@@ -1,8 +1,10 @@
-"""Canny with hysteresis (counterpart of unet_tpu/ops/edges.py:38-63,
-127-245).
+"""Sobel, Laplacian and Canny with hysteresis (counterpart of
+unet_tpu/ops/edges.py:38-120, 127-245).
 
 OpenCV parity, as in the reference:
-  * Sobel-3 gradients with BORDER_REPLICATE, taken as int32
+  * cv2.Sobel / cv2.Laplacian use BORDER_REFLECT_101 and return float32
+    (the reference's CV_64F path); `uint8_wrap` is the C cast to uint8
+  * Canny's Sobel-3 gradients use BORDER_REPLICATE, taken as int32
   * L1 magnitude |dx|+|dy| (the burr stage's); thresholds are floor()ed
   * NMS sector tests with the fixed-point constant TG22 = 13573 / 2**15 and
     OpenCV's exact strict / non-strict neighbour comparisons
@@ -18,26 +20,76 @@ import torch
 import torch.nn.functional as F
 
 from unet_tpu_torch.ops import cc_kernels
+from unet_tpu_torch.ops import image as _image
 
 # fixed-point tan(22.5 deg) * 2**15, exactly as in OpenCV's canny.cpp
 _TG22 = 13573
 _CANNY_SHIFT = 15
 
 
-def _corr1d_replicate(x: torch.Tensor, kernel: Sequence[float], axis: int) -> torch.Tensor:
-    """Correlate one axis of float32 `x` with a static 1-D kernel, replicate
-    border; zero taps are skipped and the rest summed in kernel order."""
+def _corr1d(x: torch.Tensor, kernel: Sequence[float], axis: int, border: str) -> torch.Tensor:
+    """Correlate one axis of `x` (as float32) with a static 1-D kernel,
+    `border` "reflect101" or "replicate"; zero taps are skipped and the rest
+    summed in kernel order."""
     rb = (len(kernel) - 1) // 2
+    ra = len(kernel) - 1 - rb
     n = x.shape[axis]
-    idx = np.clip(np.arange(-rb, n + len(kernel) - 1 - rb), 0, n - 1)
-    xp = x.index_select(axis, torch.from_numpy(idx).to(x.device))
+    if border == "reflect101":
+        idx = _image._reflect101_indices(n, rb, ra)
+    elif border == "replicate":
+        idx = np.clip(np.arange(-rb, n + ra), 0, n - 1)
+    else:
+        raise ValueError(border)
+    xp = x.to(torch.float32).index_select(axis, torch.from_numpy(idx).to(x.device))
     out = None
     for i, w in enumerate(kernel):
         if w == 0.0:
             continue
         term = xp.narrow(axis, i, n) * float(w)
         out = term if out is None else out + term
-    return out
+    return out if out is not None else torch.zeros(x.shape, dtype=torch.float32,
+                                                   device=x.device)
+
+
+_SOBEL_DERIV = {1: [-1.0, 0.0, 1.0], 2: [1.0, -2.0, 1.0], 0: [1.0, 2.0, 1.0]}
+
+
+def sobel(img: torch.Tensor, dx: int, dy: int, ksize: int = 3,
+          border: str = "reflect101") -> torch.Tensor:
+    """cv2.Sobel(..., ksize=3) on (..., H, W) single-channel images, float32
+    out (reference infer_enhanced_burr.py:95-96). Only ksize=3 with
+    dx + dy in {1, 2}, the reference's configurations."""
+    if ksize != 3:
+        raise NotImplementedError("only ksize=3 is used by the reference")
+    out = _corr1d(img, _SOBEL_DERIV[dy], img.ndim - 2, border)
+    return _corr1d(out, _SOBEL_DERIV[dx], img.ndim - 1, border)
+
+
+def sobel_magnitude(img: torch.Tensor, border: str = "reflect101") -> torch.Tensor:
+    """sqrt(Sx^2 + Sy^2) of the 3x3 Sobel (reference infer_enhanced_burr.py:95-97)."""
+    gx = sobel(img, 1, 0, border=border)
+    gy = sobel(img, 0, 1, border=border)
+    # float64 root rounded to float32: the correctly rounded float32 sqrt,
+    # which XLA gives and PyTorch's vectorized CPU sqrt does not always
+    return torch.sqrt((gx * gx + gy * gy).to(torch.float64)).to(torch.float32)
+
+
+# Laplacian apertures: ksize=1 is the 4-neighbour stencil; ksize=3 is the
+# Sobel-composed second-derivative aperture (OpenCV laplacian docs).
+_LAP_K1 = np.array([[0, 1, 0], [1, -4, 1], [0, 1, 0]], dtype=np.float32)
+_LAP_K3 = np.array([[2, 0, 2], [0, -8, 0], [2, 0, 2]], dtype=np.float32)
+
+
+def laplacian(img: torch.Tensor, ksize: int = 1) -> torch.Tensor:
+    """cv2.Laplacian(..., CV_64F), REFLECT_101 border, float32 out."""
+    return _image.filter2d(img, {1: _LAP_K1, 3: _LAP_K3}[ksize], channel_dim=False)
+
+
+def uint8_wrap(x: torch.Tensor) -> torch.Tensor:
+    """float -> uint8 with C-cast semantics (truncate toward 0, wrap mod
+    256), as `np.abs(lap).astype(np.uint8)` in the reference
+    (infer_enhanced_burr.py:101); float32 out."""
+    return torch.remainder(torch.trunc(x).to(torch.int32), 256).to(torch.float32)
 
 
 def _shift2d(x: torch.Tensor, dr: int, dc: int) -> torch.Tensor:
@@ -53,10 +105,10 @@ def canny(img: torch.Tensor, low: float, high: float,
     bool edge mask."""
     x = torch.round(img.to(torch.float32))
     h_ax, w_ax = x.ndim - 2, x.ndim - 1
-    gx = _corr1d_replicate(_corr1d_replicate(x, [1.0, 2.0, 1.0], h_ax),
-                           [-1.0, 0.0, 1.0], w_ax).to(torch.int32)
-    gy = _corr1d_replicate(_corr1d_replicate(x, [-1.0, 0.0, 1.0], h_ax),
-                           [1.0, 2.0, 1.0], w_ax).to(torch.int32)
+    gx = _corr1d(_corr1d(x, [1.0, 2.0, 1.0], h_ax, "replicate"),
+                 [-1.0, 0.0, 1.0], w_ax, "replicate").to(torch.int32)
+    gy = _corr1d(_corr1d(x, [-1.0, 0.0, 1.0], h_ax, "replicate"),
+                 [1.0, 2.0, 1.0], w_ax, "replicate").to(torch.int32)
 
     mag = gx.abs() + gy.abs()
     lo = int(np.floor(low))

@@ -1,5 +1,5 @@
 """Geometric and filtering image ops with OpenCV-matching semantics
-(counterpart of unet_tpu/ops/image.py:32-92, 163-168, 219-306; the
+(counterpart of unet_tpu/ops/image.py:32-92, 163-168, 219-313, 325-355; the
 decoder's align-corners upsample, image.py:114-134, is F.interpolate in
 models/unetpp.py).
 
@@ -16,6 +16,7 @@ reference computes them, then moved to the tensor's device.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import numpy as np
@@ -155,3 +156,74 @@ def gaussian_blur(img: torch.Tensor, ksize, sigma: float,
     kx = gaussian_kernel1d(int(kw), sigma) if kw > 1 else one
     ky = gaussian_kernel1d(int(kh), sigma) if kh > 1 else one
     return sep_filter2d(img, kx, ky, channel_dim)
+
+
+def _pad_hw_reflect101(x: torch.Tensor, h_ax: int, rt: int, rb: int,
+                       rl: int, rr: int) -> torch.Tensor:
+    x = x.index_select(h_ax, _idx(_reflect101_indices(x.shape[h_ax], rt, rb), x.device))
+    return x.index_select(h_ax + 1, _idx(_reflect101_indices(x.shape[h_ax + 1], rl, rr),
+                                         x.device))
+
+
+def filter2d(img: torch.Tensor, kernel, channel_dim: bool = None) -> torch.Tensor:
+    """Small dense 2-D correlation with BORDER_REFLECT_101 (cv2.filter2D).
+    Zero taps are skipped; the rest are summed in row-major kernel order, as
+    the reference sums them."""
+    h_ax = _channel_axes(img, channel_dim)
+    k = np.asarray(kernel, dtype=np.float32)
+    kh, kw = k.shape
+    rt, rl = (kh - 1) // 2, (kw - 1) // 2
+    xp = _pad_hw_reflect101(img.to(torch.float32), h_ax, rt, kh - 1 - rt, rl, kw - 1 - rl)
+    H, W = img.shape[h_ax], img.shape[h_ax + 1]
+    out = None
+    for i in range(kh):
+        row = xp.narrow(h_ax, i, H)
+        for j in range(kw):
+            if k[i, j] == 0.0:
+                continue
+            term = row.narrow(h_ax + 1, j, W) * float(k[i, j])
+            out = term if out is None else out + term
+    if out is None:
+        out = torch.zeros(img.shape, dtype=torch.float32, device=img.device)
+    return out
+
+
+def sharpen(img: torch.Tensor, channel_dim: bool = None) -> torch.Tensor:
+    """3x3 sharpen of the enhanced preprocessing preset
+    (reference infer_enhanced_burr.py:60-63)."""
+    k = np.array([[-1, -1, -1], [-1, 9, -1], [-1, -1, -1]], dtype=np.float32)
+    return filter2d(img, k, channel_dim)
+
+
+def bilateral_filter(img: torch.Tensor, d: int = 7, sigma_color: float = 25.0,
+                     sigma_space: float = 5.0, channel_dim: bool = None) -> torch.Tensor:
+    """cv2.bilateralFilter semantics (REFLECT_101 border, colour distance =
+    L1 over channels, circular window of radius d // 2) as a window sum, in
+    the JAX package's order: the reference's configurable substitute for
+    non-local means (reference src/refactor/config.py:49-53)."""
+    h_ax = _channel_axes(img, channel_dim)
+    channels = h_ax == img.ndim - 3
+    r = d // 2
+    x = img.to(torch.float32)
+    xp = _pad_hw_reflect101(x, h_ax, r, r, r, r)
+    H, W = img.shape[h_ax], img.shape[h_ax + 1]
+    gc = -0.5 / (sigma_color * sigma_color)
+    gs = -0.5 / (sigma_space * sigma_space)
+    num = torch.zeros_like(x)
+    den = torch.zeros_like(x[..., :1]) if channels else torch.zeros_like(x)
+    for dy in range(-r, r + 1):
+        for dx in range(-r, r + 1):
+            if dy * dy + dx * dx > r * r:
+                continue
+            nb = xp.narrow(h_ax, dy + r, H).narrow(h_ax + 1, dx + r, W)
+            diff = (nb - x).abs()
+            if channels:
+                cdist = diff[..., 0:1]
+                for c in range(1, diff.shape[-1]):
+                    cdist = cdist + diff[..., c:c + 1]
+            else:
+                cdist = diff
+            w = math.exp(gs * (dy * dy + dx * dx)) * torch.exp(gc * cdist * cdist)
+            num = num + w * nb
+            den = den + w
+    return num / den

@@ -1,13 +1,16 @@
 """The per-batch inspection step (counterpart of
-unet_tpu/pipeline/stages.py:62-72, 78-90, 141-179, 250-285, 339-364,
+unet_tpu/pipeline/stages.py:62-72, 78-99, 113-179, 250-310, 339-364,
 490-611, 695-697).
 
-Slice 1 runs the branches the `two_stage` preset takes:
+The port runs the branches the `two_stage` and `enhanced` presets take:
   1. uint8 BGR frames -> float32 (optional rotate / normalize)
-  2. BGR -> RGB, bilinear resize to the model size, / 255
-  3. model forward, argmax, nearest resize back to the frame, ROI limit
-  4. the `canny_band` burr stage on a static crop around the ROI
-  5. class map (0 bg / 1 cable / 2 tape / 3 burr) and pixel counts
+  2. optional enhancement: CLAHE on Lab L, a denoiser (non-local means, the
+     bilateral filter or none), sharpen
+  3. BGR -> RGB, bilinear resize to the model size, / 255
+  4. model forward, argmax, nearest resize back to the frame, ROI limit
+  5. the `canny_band` or `multiscale` burr stage on a static crop around the
+     ROI
+  6. class map (0 bg / 1 cable / 2 tape / 3 burr) and pixel counts
 Every other branch raises NotImplementedError naming its ROADMAP item.
 
 Frames and masks keep the JAX package's layout, (B, H, W, 3) and (B, H, W);
@@ -22,8 +25,10 @@ import torch
 import torch.nn as nn
 
 from unet_tpu_torch.ops import cc as _cc
+from unet_tpu_torch.ops import clahe as _clahe
 from unet_tpu_torch.ops import color as _color
 from unet_tpu_torch.ops import edges as _edges
+from unet_tpu_torch.ops import frames as _frames_ops
 from unet_tpu_torch.ops import image as _image
 from unet_tpu_torch.ops import morph as _morph
 from unet_tpu_torch.pipeline.config import BurrCfg, PipelineCfg
@@ -41,7 +46,9 @@ def _unsupported(cfg: PipelineCfg) -> None:
     """Raise for the config branches later slices port."""
     pp, seg, post = cfg.preprocess, cfg.segment, cfg.postprocess
     todo = [
-        (pp.enhance, "preprocess.enhance: ROADMAP A9 (enhanced)"),
+        (pp.enhance and pp.denoise not in _DENOISERS,
+         f"preprocess.denoise {pp.denoise!r}: not a denoiser of the JAX package "
+         f"({', '.join(_DENOISERS)}); ROADMAP A9"),
         (pp.dynamic_roi, "preprocess.dynamic_roi: ROADMAP A11"),
         (pp.letterbox, "preprocess.letterbox: ROADMAP A11"),
         (pp.normalization != "unit", "preprocess.normalization: ROADMAP A11"),
@@ -53,8 +60,8 @@ def _unsupported(cfg: PipelineCfg) -> None:
         (cfg.geometry.enabled, "geometry: ROADMAP A10"),
         (cfg.inspect.quality_stats or cfg.inspect.track_defects,
          "inspect stats: ROADMAP A11"),
-        (cfg.burr.method not in ("canny_band", "none"),
-         f"burr method {cfg.burr.method!r}: ROADMAP A9/A11"),
+        (cfg.burr.method not in _BURR_METHODS,
+         f"burr method {cfg.burr.method!r}: ROADMAP A11"),
     ]
     for bad, what in todo:
         if bad:
@@ -77,6 +84,32 @@ def geometric_preprocess(frames_bgr: torch.Tensor, cfg: PipelineCfg) -> torch.Te
     if cfg.preprocess.normalize_wh is not None:
         w, h = cfg.preprocess.normalize_wh
         x = _image.resize_bilinear(x, (h, w))
+    return x
+
+
+def enhance_frames(bgr: torch.Tensor, cfg: PipelineCfg) -> torch.Tensor:
+    """CLAHE(L) + denoise + sharpen (reference infer_enhanced_burr.py:38-66).
+    cfg.preprocess.denoise: 'nlm' / 'fastNlMeans' -- the enhanced preset's
+    default -- is fastNlMeansDenoisingColored(h=10, hColor=10, 7, 21)
+    (ops.frames.nlm_denoise_colored, kernel B2 on the card); 'bilateral' is
+    the reference's configurable alternative; 'none' skips denoising."""
+    l, a, b = _color.bgr2lab(bgr)
+    l = _clahe.clahe(torch.clamp(torch.round(l), 0, 255),
+                     cfg.preprocess.clahe_clip, cfg.preprocess.clahe_grid)
+    out = _color.lab2bgr(l, a, b)
+    if cfg.preprocess.denoise == "bilateral":
+        out = _image.bilateral_filter(out, d=7, sigma_color=25.0, sigma_space=5.0)
+    elif cfg.preprocess.denoise in ("nlm", "fastNlMeans"):
+        out = _frames_ops.nlm_denoise_colored(out, h=10.0, h_color=10.0)
+    return torch.clamp(_image.sharpen(out), 0.0, 255.0)
+
+
+def preprocess_frames(frames_bgr: torch.Tensor, cfg: PipelineCfg) -> torch.Tensor:
+    """uint8 BGR (B, H, W, 3) -> conditioned BGR float32 frames at the
+    pipeline working resolution (rotate / normalize / enhance)."""
+    x = geometric_preprocess(frames_bgr, cfg)
+    if cfg.preprocess.enhance:
+        x = enhance_frames(x, cfg)
     return x
 
 
@@ -126,11 +159,43 @@ def burr_canny_band(gray: torch.Tensor, cable: torch.Tensor, b: BurrCfg) -> torc
         min_w=b.min_w, min_h=b.min_h, strict_min_wh=b.strict_min_wh)
 
 
+def burr_multiscale(gray: torch.Tensor, cable: torch.Tensor, b: BurrCfg,
+                    mag_max: torch.Tensor = None) -> torch.Tensor:
+    """Multi-scale edge-fusion burr detector (reference
+    detect_burrs_enhanced, infer_enhanced_burr.py:69-138): Canny |
+    Sobel-magnitude | |Laplacian| inside a wide band, close/open, then the
+    CC gates. `mag_max` (B,) is the FULL-frame Sobel-magnitude max when the
+    stage runs on a crop (the reference normalizes over the frame, :97)."""
+    band = _morph.outer_band(cable, _morph.ellipse_kernel(b.band_px))
+    blurred = torch.round(_image.gaussian_blur(gray, b.blur_ksize, b.blur_sigma,
+                                               channel_dim=False))
+    e_canny = _edges.canny(blurred, b.canny_low, b.canny_high)
+    mag = _edges.sobel_magnitude(gray)
+    maxmag = (torch.amax(mag, dim=(-2, -1), keepdim=True)
+              if mag_max is None else mag_max[..., None, None])
+    mag_u8 = torch.floor(mag / torch.clamp(maxmag, min=1e-6) * 255.0)
+    e_sobel = mag_u8 > b.sobel_thresh
+    e_lap = _edges.uint8_wrap(torch.abs(_edges.laplacian(gray))) > b.laplacian_thresh
+    cand = (e_canny | e_sobel | e_lap) & band
+    cand = _morph.close_(cand, _morph.ellipse_kernel(b.close_ksize))
+    cand = _morph.open_(cand, _morph.ellipse_kernel(b.open_ksize))
+    return _cc.filter_components_by_geometry(
+        cand, b.min_area, b.max_area, max_aspect=b.max_aspect,
+        min_w=b.min_w, min_h=b.min_h, strict_min_wh=b.strict_min_wh)
+
+
+_BURR_METHODS = {"canny_band": burr_canny_band, "multiscale": burr_multiscale,
+                 "none": None}
+_DENOISERS = ("nlm", "fastNlMeans", "bilateral", "none")
+
+
 def roi_crop_box(cfg: PipelineCfg, frame_hw, margin: int = 24):
     """(y1, y2, x1, x2) of the static burr crop around the ROI, exactly the
     reference's box (stages.py:347-355), including the round-up of the width
     to a multiple of 128 columns. 800x448 frames with ROI(140, 0, 270, 512)
-    give rows 0-448 and columns 183-567: a 448x384 crop."""
+    (two_stage) give rows 0-448 and columns 183-567, a 448x384 crop; with
+    ROI(200, 0, 600, 448) in (800, 448) (enhanced), rows 0-448 and columns
+    146-658, a 448x512 crop."""
     h, w = frame_hw
     r = cfg.roi.scaled((w, h)) if cfg.roi.space != (w, h) else cfg.roi
     pad = cfg.burr.band_px + max(cfg.burr.close_ksize, cfg.burr.open_ksize) + margin
@@ -143,13 +208,17 @@ def roi_crop_box(cfg: PipelineCfg, frame_hw, margin: int = 24):
 
 
 def _burr_on_roi_crop(gray: torch.Tensor, cable: torch.Tensor,
-                      cfg: PipelineCfg, frame_hw) -> torch.Tensor:
+                      cfg: PipelineCfg, burr_fn, frame_hw) -> torch.Tensor:
     """Run the burr stage on the static crop around the ROI and paste back.
-    Hysteresis and the CC filter both see the crop edge, so the box is part
-    of the result."""
+    Hysteresis, the filters and the CC filter all see the crop edge, so the
+    box is part of the result. The multiscale stage normalizes by the
+    full-frame Sobel-magnitude max, taken before the crop."""
     y1, y2, x1, x2 = roi_crop_box(cfg, frame_hw)
-    crop = burr_canny_band(gray[..., y1:y2, x1:x2].contiguous(),
-                           cable[..., y1:y2, x1:x2].contiguous(), cfg.burr)
+    kw = {}
+    if burr_fn is burr_multiscale:
+        kw["mag_max"] = torch.amax(_edges.sobel_magnitude(gray), dim=(-2, -1))
+    crop = burr_fn(gray[..., y1:y2, x1:x2].contiguous(),
+                   cable[..., y1:y2, x1:x2].contiguous(), cfg.burr, **kw)
     out = torch.zeros(gray.shape, dtype=torch.bool, device=gray.device)
     out[..., y1:y2, x1:x2] = crop
     return out
@@ -165,7 +234,7 @@ def run_pipeline(model: nn.Module, frames_bgr: torch.Tensor,
     """The full step over one (B, H, W, 3) uint8 BGR batch, on the device of
     `frames_bgr` (the model must sit on the same device)."""
     _unsupported(cfg)
-    frames = geometric_preprocess(frames_bgr, cfg)
+    frames = preprocess_frames(frames_bgr, cfg)
     B, H, W = frames.shape[:3]
 
     x = model_input(frames, cfg).permute(0, 3, 1, 2).contiguous()
@@ -181,12 +250,13 @@ def run_pipeline(model: nn.Module, frames_bgr: torch.Tensor,
 
     # the reference skips the burr stage when no frame holds cable
     # (infer_two_stage_burr.py:69-70)
-    if cfg.burr.method == "canny_band" and bool(cable.any()):
+    burr_fn = _BURR_METHODS[cfg.burr.method]
+    if burr_fn is not None and bool(cable.any()):
         gray = _color.bgr2gray(frames)
         if cfg.roi is not None:
-            burr = _burr_on_roi_crop(gray, cable, cfg, (H, W))
+            burr = _burr_on_roi_crop(gray, cable, cfg, burr_fn, (H, W))
         else:
-            burr = burr_canny_band(gray, cable, cfg.burr)
+            burr = burr_fn(gray, cable, cfg.burr)
     else:
         burr = torch.zeros_like(cable)
 
