@@ -14,11 +14,17 @@ Phases; any failure exits non-zero and prints no result line:
      >= 0.999 with the CPU route at b=2)
   4. kernels: B1 (cc_propagate) against its plain version bit for bit, on
      the masks of tests/test_cc_pallas.py, on noise and serpentine masks at
-     both paths' crop shapes, and on the inputs each path gives it, at
-     truncated and full `max_iters`; B2 (nlm) against its plain version
-     within rtol 2e-5 / atol 2e-3, on the test sizes, on a noise stack with
-     ragged tiles and on the three inputs the enhanced path gives it; times
-     each at the main path's inputs beside its bound
+     both paths' crop shapes, on masks that cross the cluster route's stripe
+     boundaries (`stripe_masks`), on a (1024, 1024) plane beyond the
+     cluster's capacity (global route), and on the inputs each path gives
+     it, at truncated and full `max_iters`, the global route there too; B2
+     (nlm) against its plain version within rtol 2e-5 / atol 2e-3, on the
+     test sizes, on a noise stack with ragged tiles and on the three inputs
+     the enhanced path gives it; times each at the main path's inputs
+     beside its bound, B1 on both routes in turns. Then B1's trace at the
+     main-path inputs (`trace_cc`): per route, one and two iterations, the
+     run-min passes alone, and the masks' foreground share; and the global
+     route's sweep against the batch (`trace_cc_batches`)
   5. the NestedUNet (3-class, 512^2 model input, fp32 without TF32, weights
      from a numpy seed): logits against the CPU, then ms per batch and
      frames/s of both presets at b=8 and b=32, and a profile of one b=32
@@ -151,10 +157,15 @@ def _log(msg: str) -> None:
 
 
 def _time_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Device ms per call of `fn`, from CUDA events around `reps` calls. A
+    spin kernel of about 25 ms runs first, so that the host enqueues the
+    calls while the card is busy and its per-call overhead is not timed
+    (a function that synchronises, as the plain versions do, still is)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -185,6 +196,32 @@ def _serpentine(b: int, h: int, w: int) -> np.ndarray:
         c = w - 2 if i % 2 == 0 else 1
         m[:, r:r + 4, c] = True
     return m
+
+
+def stripe_masks(seed: int = 7):
+    """Masks that cross the B1 cluster route's stripe boundaries (stripes of
+    ceil(H / 8) rows, 56 or 57 here): [(name, (2, H, W) bool)]. H and W are
+    the crops' or off by one, so the last stripe is short and W is not
+    always a multiple of 32."""
+    rng = np.random.default_rng(seed)
+    columns = np.zeros((2, 448, 512), bool)
+    columns[:, :, ::5] = True          # runs over the whole height ...
+    columns[:, -1] = True
+    columns[:, 56, ::10] = False       # ... some cut on a stripe's first row
+    columns[:, 111, 5::10] = False     # ... or on its last
+    empty_stripe = rng.random((2, 449, 384)) < 0.8
+    empty_stripe[:, 57:114] = False    # stripe 1 of 8 all background
+    full_stripes = rng.random((2, 445, 384)) < 0.7
+    full_stripes[:, 56:112] = True     # stripes 1 and 4 all foreground
+    full_stripes[:, 224:280] = True
+    return [("serpentine 448x384", _serpentine(2, 448, 384)),
+            ("serpentine 445x383", _serpentine(2, 445, 383)),
+            ("serpentine 449x512", _serpentine(2, 449, 512)),
+            ("columns 448x512", columns),
+            ("noise 0.9 445x383", rng.random((2, 445, 383)) < 0.9),
+            ("noise 0.6 449x512", rng.random((2, 449, 512)) < 0.6),
+            ("one stripe background 449x384", empty_stripe),
+            ("two stripes foreground 445x384", full_stripes)]
 
 
 def _iterations(state0, fg, pool_iters, max_iters, connectivity=8) -> int:
@@ -251,24 +288,32 @@ def _nlm_bound_ms(x, template, search, sms, clock_hz):
 
 
 def phase_cc(recorded):
-    """B1 against its plain version, bit for bit; timing at the main paths'
-    inputs. `recorded` maps a site ("two_stage/hysteresis", ...) to the
-    (state0, fg, kwargs) of that main-path call. Returns (per-launch
-    records, max abs error seen)."""
+    """B1 against its plain version, bit for bit, on both routes; timing of
+    both routes at the main paths' inputs. `recorded` maps a site
+    ("two_stage/hysteresis", ...) to the (state0, fg, kwargs) of that
+    main-path call. Returns (per-launch records, max abs error seen)."""
     from unet_tpu_torch.ops import cc, cc_kernels
 
     max_err = 0
     n = 0
 
-    def check(state0, fg, what, **kw):
+    def check(state0, fg, what, fn=cc_kernels.propagate, **kw):
         nonlocal max_err, n
-        got = cc_kernels.propagate(state0, fg, **kw)
+        got = fn(state0, fg, **kw)
         want = cc_kernels.propagate_plain(state0, fg, **kw)
         err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
         max_err = max(max_err, err)
         n += 1
         if err:
             raise AssertionError(f"cc_propagate != plain on {what} {kw}: max abs err {err}")
+
+    def both_callers(fg, what):
+        # hysteresis shape (strong=0 / weak=1 seeds) and CC filter shape
+        seed = np.where(rng.random(fg.shape) < 0.1, 0, 1).astype(np.int32)[:, None]
+        for mi in (1, 2, 16):
+            check(torch.from_numpy(seed).cuda(), fg, f"{what} C=1", pool_iters=16, max_iters=mi)
+        for mi in (1, 2, 64):
+            check(cc._bbox_seed_state(fg), fg, f"{what} C=4", pool_iters=4, max_iters=mi)
 
     rng = np.random.default_rng(1234)
     for i, m in enumerate(_test_masks(rng) + [_serpentine(1, 64, 128)]):
@@ -278,31 +323,121 @@ def phase_cc(recorded):
     for w in (384, 512):        # the two_stage and enhanced crop widths
         for name, m in (("noise", rng.random((8, 448, w)) < 0.35),
                         ("serpentine", _serpentine(8, 448, w))):
-            fg = torch.from_numpy(m).cuda()
-            seed = np.where(rng.random(m.shape) < 0.1, 0, 1).astype(np.int32)[:, None]
-            for mi in (1, 2, 16):   # hysteresis shape: strong=0 / weak=1 seeds
-                check(torch.from_numpy(seed).cuda(), fg, f"{name} (8,1,448,{w})",
-                      pool_iters=16, max_iters=mi)
-            for mi in (1, 2, 64):   # CC filter shape: label/bbox seeds
-                check(cc._bbox_seed_state(fg), fg, f"{name} (8,4,448,{w})",
-                      pool_iters=4, max_iters=mi)
+            both_callers(torch.from_numpy(m).cuda(), f"{name} (8,448,{w})")
+    for name, m in stripe_masks():
+        both_callers(torch.from_numpy(m).cuda(), f"stripe-boundary mask {name}")
+    # a plane beyond the cluster's capacity takes the global route
+    big = torch.from_numpy(rng.random((1, 1024, 1024)) < 0.5).cuda()
+    before = cc_kernels.launches_global, cc_kernels.launches_cluster
+    both_callers(big, "beyond-capacity plane (1,1024,1024)")
+    if (cc_kernels.launches_global - before[0], cc_kernels.launches_cluster - before[1]) != (6, 0):
+        raise AssertionError("the (1024, 1024) plane did not take the global route")
+
     per_launch = []
     for site, (state0, fg, kw) in recorded.items():
         for mi in (1, 2, kw["max_iters"]):
             check(state0, fg, f"main-path {site}", **dict(kw, max_iters=mi))
+        check(state0, fg, f"main-path {site}, global route", fn=cc_kernels.propagate_global, **kw)
         iters = _iterations(state0, fg, kw["pool_iters"], kw["max_iters"],
                             kw.get("connectivity", 8))
-        ms = _time_ms(lambda: cc_kernels.propagate(state0, fg, **kw), reps=10)
+        which, K = cc_kernels.route(*state0.shape[-2:])
+        new = lambda: cc_kernels.propagate(state0, fg, **kw)
+        old = lambda: cc_kernels.propagate_global(state0, fg, **kw)
+        # in turns, new old old new, on one card
+        t = [_time_ms(fn, reps=10) for fn in (new, old, old, new)]
+        ms, global_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
         plain_ms = _time_ms(lambda: cc_kernels.propagate_plain(state0, fg, **kw), reps=3)
         bound, bound_by = _bound_ms(state0, fg, kw["pool_iters"], iters)
         per_launch.append(dict(site=site, shape=list(state0.shape), iterations=iters,
-                               ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                               bound_by=bound_by, **kw))
+                               route=f"{which}{K or ''}", ms=ms, global_ms=global_ms,
+                               plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, **kw))
         _log(f"kernel cc_propagate {site} {tuple(state0.shape)} pool {kw['pool_iters']} "
-             f"max {kw['max_iters']} ({iters} iterations run): {ms:.4f} ms/launch, "
-             f"plain {plain_ms:.4f} ms, bound {bound:.5f} ms ({bound_by})")
+             f"max {kw['max_iters']} ({iters} iterations run): route {which}{K or ''} "
+             f"{ms:.4f} ms/launch [{t[0]:.4f}, {t[3]:.4f}], global route {global_ms:.4f} ms "
+             f"[{t[1]:.4f}, {t[2]:.4f}], plain {plain_ms:.4f} ms, bound {bound:.5f} ms "
+             f"({bound_by})")
     _log(f"kernels: cc_propagate, {n} comparisons with the plain version, all bit-identical")
     return per_launch, max_err
+
+
+def trace_cc(recorded):
+    """Where B1's time goes at each main-path input, on each route that
+    takes the plane (global, cluster of 8, cluster of 16), from the
+    wrapper's own arguments: the full call, `max_iters` 1 and 2 (their
+    difference is one iteration), and `pool_iters=0, max_iters=1` (the two
+    run-min passes alone). Also the mask's foreground share; the share of
+    32-pixel chunks of the flat plane (one warp's pixels on one iteration of
+    a global-route pool sweep, whose 1024-thread block walks the plane 1024
+    pixels at a time) that hold a foreground pixel; and, for the busiest of
+    the block's 32 warps, the share of the sweep's iterations on which it
+    holds one (mean over planes). Returns {site: {"fg_share": x,
+    "fg_chunk_share": y, "fg_busiest_warp_share": z, route: {label: ms}}}."""
+    import functools
+
+    from unet_tpu_torch.ops import cc_kernels
+
+    out = {}
+    for site, (state0, fg, kw) in recorded.items():
+        H, W = state0.shape[-2:]
+        P = kw["pool_iters"]
+        routes = {"global": cc_kernels.propagate_global}
+        for K in cc_kernels.CLUSTER_SIZES:
+            if cc_kernels.cluster_fits(H, W, K):
+                routes[f"cluster{K}"] = functools.partial(cc_kernels.propagate_cluster,
+                                                          cluster=K)
+        n = H * W
+        flat = torch.zeros(fg.shape[0], -(-n // 1024) * 1024, dtype=torch.bool,
+                           device=fg.device)
+        flat[:, :n] = fg.reshape(fg.shape[0], -1)
+        warps = flat.reshape(fg.shape[0], -1, 32, 32).any(-1)   # (plane, iteration, warp)
+        rec = {"fg_share": float(fg.float().mean()),
+               "fg_chunk_share": float(warps.float().mean()),
+               "fg_busiest_warp_share": float(warps.float().mean(1).max(1).values.mean())}
+        for name, fn in routes.items():
+            t = {label: _time_ms(lambda: fn(state0, fg, **dict(kw, pool_iters=p, max_iters=m)),
+                                 reps=5)
+                 for label, (p, m) in (("full", (P, kw["max_iters"])), ("iter1", (P, 1)),
+                                       ("iter2", (P, 2)), ("runmin1", (0, 1)))}
+            t["per_iteration"] = t["iter2"] - t["iter1"]
+            t["per_sweep"] = (t["iter1"] - t["runmin1"]) / P
+            rec[name] = t
+            _log(f"trace cc_propagate {site} {tuple(state0.shape)} fg share "
+                 f"{rec['fg_share']:.4f}, chunk share {rec['fg_chunk_share']:.4f}, busiest "
+                 f"warp {rec['fg_busiest_warp_share']:.4f}, {name}: full {t['full']:.4f} ms, 1 iteration "
+                 f"{t['iter1']:.4f}, 2 iterations {t['iter2']:.4f} (one more: "
+                 f"{t['per_iteration']:.4f}), run-min passes alone {t['runmin1']:.4f}, "
+                 f"per pool sweep {t['per_sweep'] * 1e3:.2f} us")
+        out[site] = rec
+    return out
+
+
+def trace_cc_batches(recorded):
+    """The global route's pool sweep at each hysteresis site against the
+    batch: the site's first b planes (b = 1, 2, 4, 8) and its batch twice
+    (16). Planes run on different SMs and share only the L2, so a sweep that
+    slows as the batch grows is paced by the L2 (working set: the plane, its
+    ping-pong copy and the mask, 9 bytes a pixel). Returns {site: {b:
+    (working set MB, us per sweep)}}."""
+    from unet_tpu_torch.ops import cc_kernels
+
+    out = {}
+    for site, (state0, fg, kw) in recorded.items():
+        if state0.shape[1] != 1:
+            continue
+        P = kw["pool_iters"]
+        rec = {}
+        for b in (1, 2, 4, 8, 16):
+            s, f = (state0[:b], fg[:b]) if b <= state0.shape[0] else (
+                torch.cat([state0, state0]), torch.cat([fg, fg]))
+            t = {m: _time_ms(lambda: cc_kernels.propagate_global(
+                s, f, **dict(kw, pool_iters=p, max_iters=1)), reps=5)
+                 for m, p in (("iter1", P), ("runmin1", 0))}
+            rec[b] = (s.shape[0] * s.shape[-2] * s.shape[-1] * 9 / 1e6,
+                      (t["iter1"] - t["runmin1"]) / P * 1e3)
+        out[site] = rec
+        _log(f"trace cc_propagate {site} global route, per pool sweep by batch: " + ", ".join(
+            f"b={b} ({mb:.1f} MB) {us:.2f} us" for b, (mb, us) in rec.items()))
+    return out
 
 
 def phase_nlm(recorded, sms, clock_hz):
@@ -387,11 +522,14 @@ def _drive(step, frames, expect, what):
     from unet_tpu_torch.ops import cc_kernels, nlm_kernels
 
     torch.cuda.synchronize()
-    cc_kernels.launches = 0
+    cc_kernels.launches = cc_kernels.launches_cluster = cc_kernels.launches_global = 0
     nlm_kernels.launches = 0
     out = step(frames)
     torch.cuda.synchronize()
-    got = {"cc_propagate": cc_kernels.launches, "nlm": nlm_kernels.launches}
+    got = {"cc_propagate": cc_kernels.launches,
+           "cc_propagate_cluster": cc_kernels.launches_cluster,
+           "cc_propagate_global": cc_kernels.launches_global,
+           "nlm": nlm_kernels.launches}
     _log(f"main path ({what}): launches {got}")
     if got != expect:
         raise AssertionError(f"{what}: expected launches {expect}, got {got}")
@@ -450,7 +588,7 @@ def _profile_step(step, frames, step_ms: float, what: str) -> None:
         return
     _log(f"profile ({what}, one b={frames.shape[0]} step): device busy {busy / 1e3:.3f} ms "
          f"of {step_ms:.3f} ms per step, idle share {max(0.0, 1 - busy / 1e3 / step_ms):.4f}")
-    for name in ("nlm_kernel", "cc_propagate_kernel"):
+    for name in ("nlm_kernel", "cc_propagate_cluster_kernel", "cc_propagate_global_kernel"):
         t = sum(dev(e) for e in evts if name in e.key)
         _log(f"  {name}: {t / 1e3:.3f} ms, {t / busy:.4f} of device busy time")
     for e in sorted(evts, key=dev, reverse=True)[:12]:
@@ -500,8 +638,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     H, W = 448, 800
     cfgs = {"two_stage": presets.two_stage(), "enhanced": presets.enhanced()}
-    expect = {"two_stage": {"cc_propagate": 2, "nlm": 0},
-              "enhanced": {"cc_propagate": 2, "nlm": 3}}
+    # every B1 launch of both paths takes the cluster route
+    expect = {"two_stage": {"cc_propagate": 2, "cc_propagate_cluster": 2,
+                            "cc_propagate_global": 0, "nlm": 0},
+              "enhanced": {"cc_propagate": 2, "cc_propagate_cluster": 2,
+                           "cc_propagate_global": 0, "nlm": 3}}
     scenes = {"two_stage": lambda b, seed: synthetic_frames(b, H, W, seed=seed),
               "enhanced": lambda b, seed: enhanced_scenes(b, H, W, seed=seed)}
 
@@ -546,6 +687,8 @@ def main() -> int:
 
     # -- kernels against their plain versions, and their times
     cc_launch, cc_err = phase_cc(cc_rec)
+    cc_trace = trace_cc(cc_rec)
+    cc_batches = trace_cc_batches(cc_rec)
     nlm_launch, nlm_err = phase_nlm(nlm_rec, sms, clock_mhz * 1e6)
 
     # -- NestedUNet at full width
@@ -583,20 +726,24 @@ def main() -> int:
             timings[path][b] = dict(ms=ms, frames_per_s=b / ms * 1e3, forward_ms=fwd_ms)
         _profile_step(step, frames, timings[path][32]["ms"], f"{path} NestedUNet")
 
-    def entry(name, source, replaces, per_launch, max_err, by_path):
+    def entry(name, source, replaces, per_launch, max_err, by_path, **extra):
         # ms / plain_ms / bound_ms: every counted main-path launch of one b=8
         # batch per path, summed, to match `launches`
-        total = {k: sum(p[k] for p in per_launch) for k in ("ms", "plain_ms", "bound_ms")}
+        keys = ("ms", "plain_ms", "bound_ms") + (("global_ms",) if "global_ms" in per_launch[0] else ())
+        total = {k: sum(p[k] for p in per_launch) for k in keys}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(by_path.values()), "launches_per_path": by_path,
                 "max_abs_err": max_err, **total,
                 "bound_by": max(per_launch, key=lambda p: p["bound_ms"])["bound_by"],
-                "library_ms": None, "per_launch": per_launch}
+                "library_ms": None, "per_launch": per_launch, **extra}
 
     record = {"kernels": [
         entry("cc_propagate", "unet_tpu_torch/csrc/cc_propagate.cu",
               "unet_tpu/ops/cc_pallas.py:169", cc_launch, cc_err,
-              {p: c["cc_propagate"] for p, c in counts.items()}),
+              {p: c["cc_propagate"] for p, c in counts.items()},
+              launches_per_route={p: {r: c[f"cc_propagate_{r}"] for r in ("cluster", "global")}
+                                  for p, c in counts.items()},
+              trace=cc_trace, trace_global_by_batch=cc_batches),
         entry("nlm", "unet_tpu_torch/csrc/nlm.cu", "unet_tpu/ops/nlm_pallas.py:96",
               nlm_launch, nlm_err, {p: c["nlm"] for p, c in counts.items() if c["nlm"]}),
     ], "slice_ms_per_batch": timings, "card": card,

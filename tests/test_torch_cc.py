@@ -159,6 +159,97 @@ def test_propagate_dispatch_and_checks(rng):
                              max_iters=2)
 
 
+@pytest.mark.parametrize("H,W,want", [
+    (448, 384, ("cluster", 8)),       # two_stage crop
+    (448, 512, ("cluster", 8)),       # enhanced crop
+    (445, 383, ("cluster", 8)),       # short last stripe, W not a multiple of 32
+    (449, 512, ("cluster", 8)),
+    (64, 128, ("cluster", 8)),        # the tests' masks
+    (5, 40, ("cluster", 8)),          # fewer rows than CTAs
+    (448, 800, ("cluster", 16)),      # frame-sized labels: 56 rows a thread are too many
+    (1024, 1024, ("global", None)),   # over the shared-memory and register budget
+    (2048, 2448, ("global", None)),
+])
+def test_route_by_plane_shape(H, W, want):
+    assert cc_kernels.route(H, W) == want
+
+
+def test_cluster_shared_memory_budget():
+    """The budget csrc/cc_propagate.cu's header reckons, and every plane the
+    cluster route takes fits a CTA's shared memory."""
+    assert cc_kernels.cluster_smem_bytes(448, 384, 8) == 99944
+    assert cc_kernels.cluster_smem_bytes(448, 512, 8) == 133096
+    assert cc_kernels.cluster_smem_bytes(448, 800, 16) == 115064
+    for H, W in ((448, 384), (448, 512), (448, 800), (512, 1024), (1024, 512)):
+        which, K = cc_kernels.route(H, W)
+        assert which == "cluster"
+        assert cc_kernels.cluster_smem_bytes(H, W, K) <= cc_kernels.SMEM_LIMIT
+    assert not cc_kernels.cluster_fits(448, 800, 8)
+
+
+def _column_combine(v, f, stripes):
+    """numpy model of the cluster kernel's column run-min across stripes.
+    v: (H, W) values with background at INT32_MAX; f: (H, W) mask. Each of
+    `stripes` stripes of ceil(H / stripes) rows scans its own rows, publishes
+    per column the min of the run touching its top row, of the run touching
+    its bottom row, and whether it is all foreground; then chains the other
+    stripes' summaries into the minimum carried in at each end, and applies
+    it to the runs that touch its ends."""
+    INF = cc_kernels.INT32_MAX
+    H, W = v.shape
+    S = -(-H // stripes)
+    segs, sums = [], []
+    for k in range(stripes):
+        r0 = min(k * S, H)
+        R = min(S, H - r0)
+        x, m = v[r0:r0 + R].copy(), f[r0:r0 + R]
+        for order in (range(R), reversed(range(R))):
+            run = np.full(W, INF, np.int64)
+            for i in order:
+                run = np.where(m[i], np.minimum(run, x[i]), INF)
+                x[i] = run
+        inf = np.full(W, INF, np.int64)
+        sums.append((x[0] if R else inf, x[R - 1] if R else inf, m.all(0)))
+        segs.append((r0, R, x, m))
+    out = v.copy()
+    for k, (r0, R, x, m) in enumerate(segs):
+        if R == 0:        # a trailing stripe past the last row
+            continue
+        carried = []
+        for js, end in ((range(k - 1, -1, -1), 1), (range(k + 1, stripes), 0)):
+            c = np.full(W, INF, np.int64)
+            open_ = np.ones(W, bool)
+            for j in js:
+                c = np.where(open_, np.minimum(c, sums[j][end]), c)
+                open_ &= sums[j][2]
+            carried.append(c)
+        rows = np.arange(R)[:, None]
+        gap = ~m
+        head = np.where(gap.any(0), gap.argmax(0), R)                  # rows [0, head)
+        tail = np.where(gap.any(0), R - 1 - gap[::-1].argmax(0), -1)   # rows (tail, R)
+        x = np.where(rows < head, np.minimum(x, carried[0]), x)
+        x = np.where(rows > tail, np.minimum(x, carried[1]), x)
+        out[r0:r0 + R] = x
+    return out
+
+
+@pytest.mark.parametrize("density", [0.3, 0.7, 0.95])
+@pytest.mark.parametrize("stripes", [1, 2, 8, 16])
+def test_column_combine_model_matches_run_min(rng, stripes, density):
+    """The cross-stripe column combine equals one segmented run-min along
+    whole columns, on random masks whose 70 rows leave the last stripes
+    short (or, at 16, empty), plus stripes forced all foreground or all
+    background."""
+    H, W = 70, 33
+    f = rng.random((H, W)) < density
+    f[10:15] = True
+    f[40:45, ::2] = False
+    v = rng.integers(0, 1000, (H, W)).astype(np.int64)
+    got = _column_combine(np.where(f, v, cc_kernels.INT32_MAX), f, stripes)
+    want = cc_kernels._run_min(torch.from_numpy(v), torch.from_numpy(f), -2).numpy()
+    assert np.array_equal(np.where(f, got, v), want)
+
+
 @pytest.mark.cuda
 def test_propagate_kernel_matches_plain_on_card(rng):
     if not torch.cuda.is_available():

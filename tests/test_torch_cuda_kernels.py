@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import NLM_TOL, noisy_planes
+from chip_smoke import NLM_TOL, noisy_planes, stripe_masks
 from unet_tpu_torch.ops import cc, cc_kernels, nlm_kernels
 
 
@@ -60,3 +60,94 @@ def test_cc_propagate_at_the_enhanced_crop(card, max_iters):
         got = cc_kernels.propagate(state0, fg, pool_iters=pool, max_iters=max_iters)
         want = cc_kernels.propagate_plain(state0, fg, pool_iters=pool, max_iters=max_iters)
         assert torch.equal(got, want)
+
+
+def _seeds(fg: torch.Tensor, seed: int = 0):
+    """The two callers' seeds: hysteresis (C=1, strong 0 / weak 1, pool 16,
+    truncated at 16) and the CC filter (C=4 label/bbox, pool 4, max 64)."""
+    rng = np.random.default_rng(seed)
+    strong = np.where(rng.random((fg.shape[0], 1) + tuple(fg.shape[1:])) < 0.05, 0, 1)
+    return [(torch.from_numpy(strong.astype(np.int32)).to(fg.device), 16, (1, 2, 3, 16, 64)),
+            (cc._bbox_seed_state(fg), 4, (1, 2, 3, 64))]
+
+
+def _routes_taken(fn):
+    before = (cc_kernels.launches_cluster, cc_kernels.launches_global)
+    out = fn()
+    return out, (cc_kernels.launches_cluster - before[0], cc_kernels.launches_global - before[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("connectivity", [4, 8])
+@pytest.mark.parametrize("case", range(len(stripe_masks())))
+def test_cc_cluster_route_across_stripe_boundaries(card, case, connectivity):
+    """The cluster route bit for bit against the plain version on masks that
+    cross its stripe boundaries, truncated and full, C=1 and C=4."""
+    name, mask = stripe_masks()[case]
+    fg = torch.from_numpy(mask).to(card)
+    assert cc_kernels.route(*mask.shape[-2:])[0] == "cluster"
+    for state0, pool, iters in _seeds(fg):
+        for max_iters in iters:
+            kw = dict(pool_iters=pool, max_iters=max_iters, connectivity=connectivity)
+            got, taken = _routes_taken(lambda: cc_kernels.propagate(state0, fg, **kw))
+            assert taken == (1, 0)
+            want = cc_kernels.propagate_plain(state0, fg, **kw)
+            assert torch.equal(got, want), f"{name} C={state0.shape[1]} {kw}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 5, 40), (3, 64, 128), (1, 448, 800)])
+def test_cc_cluster_route_short_and_wide_planes(card, shape):
+    """Fewer rows than CTAs (empty stripes), the tests' masks' shape, and
+    the frame-sized plane that needs a cluster of 16."""
+    rng = np.random.default_rng(11)
+    fg = torch.from_numpy(rng.random(shape) < 0.6).to(card)
+    for state0, pool, iters in _seeds(fg, seed=1):
+        for max_iters in iters:
+            kw = dict(pool_iters=pool, max_iters=max_iters)
+            got, taken = _routes_taken(lambda: cc_kernels.propagate(state0, fg, **kw))
+            assert taken == (1, 0)
+            assert torch.equal(got, cc_kernels.propagate_plain(state0, fg, **kw))
+
+
+@pytest.mark.cuda
+def test_cc_cluster_route_unaligned_tensors(card):
+    """Views that start 4 bytes into their storage take the 4-byte loads."""
+    rng = np.random.default_rng(12)
+    B, H, W = 2, 448, 384
+    fg_store = torch.zeros(B * H * W + 1, dtype=torch.bool, device=card)
+    fg = fg_store[1:].view(B, H, W)
+    fg.copy_(torch.from_numpy(rng.random((B, H, W)) < 0.6).to(card))
+    s_store = torch.empty(B * 4 * H * W + 1, dtype=torch.int32, device=card)
+    state0 = s_store[1:].view(B, 4, H, W)
+    state0.copy_(cc._bbox_seed_state(fg))
+    assert state0.data_ptr() % 16 != 0 and state0.is_contiguous()
+    kw = dict(pool_iters=4, max_iters=64)
+    assert torch.equal(cc_kernels.propagate(state0, fg, **kw),
+                       cc_kernels.propagate_plain(state0, fg, **kw))
+
+
+@pytest.mark.cuda
+def test_cc_plane_beyond_the_cluster_takes_the_global_route(card):
+    rng = np.random.default_rng(13)
+    fg = torch.from_numpy(rng.random((1, 1024, 1024)) < 0.6).to(card)
+    assert cc_kernels.route(1024, 1024) == ("global", None)
+    state0, pool, _ = _seeds(fg, seed=2)[0]
+    for max_iters in (1, 16):
+        kw = dict(pool_iters=pool, max_iters=max_iters)
+        got, taken = _routes_taken(lambda: cc_kernels.propagate(state0, fg, **kw))
+        assert taken == (0, 1)
+        assert torch.equal(got, cc_kernels.propagate_plain(state0, fg, **kw))
+    with pytest.raises(ValueError, match="does not fit"):
+        cc_kernels.propagate_cluster(state0, fg, pool_iters=16, max_iters=1, cluster=16)
+
+
+@pytest.mark.cuda
+def test_cc_global_route_matches_the_cluster_route(card):
+    """The global kernel, called directly, at the enhanced crop."""
+    rng = np.random.default_rng(14)
+    fg = torch.from_numpy(rng.random((2, 448, 512)) < 0.5).to(card)
+    for state0, pool, iters in _seeds(fg, seed=3):
+        kw = dict(pool_iters=pool, max_iters=iters[-1])
+        assert torch.equal(cc_kernels.propagate_global(state0, fg, **kw),
+                           cc_kernels.propagate_cluster(state0, fg, cluster=8, **kw))
