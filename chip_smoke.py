@@ -19,16 +19,20 @@ Phases; any failure exits non-zero and prints no result line:
      cluster's capacity (global route), and on the inputs each path gives
      it, at truncated and full `max_iters`, the global route there too; B2
      (nlm) against its plain version within rtol 2e-5 / atol 2e-3, on the
-     test sizes, on a noise stack with ragged tiles and on the three inputs
-     the enhanced path gives it; times each at the main path's inputs
-     beside its bound, B1 on both routes in turns. Then B1's trace at the
-     main-path inputs (`trace_cc`): per route, one and two iterations, the
-     run-min passes alone, and the masks' foreground share; and the global
-     route's sweep against the batch (`trace_cc_batches`)
-  5. the NestedUNet (3-class, 512^2 model input, fp32 without TF32, weights
-     from a numpy seed): logits against the CPU, then ms per batch and
-     frames/s of both presets at b=8 and b=32, and a profile of one b=32
-     step of each
+     test sizes, on every template at ragged tiles, on a noise stack with
+     ragged tiles and on the three inputs the enhanced path gives it; times
+     each at the main path's inputs beside its bound, B1 on both routes in
+     turns, and B2 at search 1 (its fixed cost; the rest is per offset).
+     Then B1's trace at the main-path inputs (`trace_cc`): per route, one
+     and two iterations, the run-min passes alone, and the masks'
+     foreground share; and the global route's sweep against the batch
+     (`trace_cc_batches`)
+  5. the NestedUNet (3-class, 512^2 model input, fp32, weights from a numpy
+     seed): logits against the CPU through `stages.forward_logits`, which
+     pins cuDNN's convs to full fp32 itself (this script sets no TF32 flag;
+     the unpinned forward under PyTorch's defaults is printed beside it),
+     then ms per batch and frames/s of both presets at b=8 and b=32, and a
+     profile of one b=32 step of each
 Then, on the last two lines, the kernels' JSON record and
 {"ok": true, "device": {...}}.
 
@@ -468,6 +472,10 @@ def phase_nlm(recorded, sms, clock_hz):
                     noisy_planes((2, 40, 56), seed=3)):
             check(torch.from_numpy(img).cuda(), 10.0, template, search,
                   "test size (2,40,56)")
+    # partial tiles (64 - 2T columns by 64 rows) and strips on both axes
+    ragged = torch.from_numpy(noisy_planes((2, 70, 130), seed=5)).cuda()
+    for template in (1, 3, 5, 7, 9, 11):
+        check(ragged, 10.0, template, 21, "noise stack (2,70,130)")
     # 474 x 826 leaves ragged tiles on both axes
     check(torch.from_numpy(noisy_planes((8, 474, 826), seed=4)).cuda(), 10.0, 7, 21,
           "noise stack (8,474,826)")
@@ -475,15 +483,21 @@ def phase_nlm(recorded, sms, clock_hz):
     for site, (x, h, template, search) in recorded.items():
         check(x, h, template, search, f"main-path {site} {tuple(x.shape)}")
         ms = _time_ms(lambda: nlm_kernels.nlm(x, h, template, search), reps=10)
+        search1_ms = _time_ms(lambda: nlm_kernels.nlm(x, h, template, 1), reps=10)
+        ns_per_offset = (ms - search1_ms) / (search * search - 1) * 1e6
         plain_ms = _time_ms(lambda: nlm_kernels.nlm_plain(x, h, template, search), reps=2)
         bound, bound_by, parts = _nlm_bound_ms(x, template, search, sms, clock_hz)
         per_launch.append(dict(site=site, shape=list(x.shape), h=h, template=template,
                                search=search, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                               bound_by=bound_by, bound_parts_ms=parts))
+                               bound_by=bound_by, bound_parts_ms=parts,
+                               search1_ms=search1_ms, ns_per_offset=ns_per_offset))
         _log(f"kernel nlm {site} {tuple(x.shape)} h {h} template {template} search "
              f"{search}: {ms:.4f} ms/launch, plain {plain_ms:.4f} ms, bound {bound:.5f} ms "
              f"({bound_by}; exp {parts['exp']:.5f}, fp32 {parts['fp32']:.5f}, "
              f"bytes {parts['bytes']:.5f})")
+        _log(f"split nlm {site}: search 1 {search1_ms:.4f} ms (staging, store, fixed cost), "
+             f"search {search} {ms:.4f} ms: {ns_per_offset:.1f} ns per offset, "
+             f"{ns_per_offset * 1e3 / x.numel():.4f} ps per pixel-offset")
     _log(f"kernels: nlm, {n} comparisons with the plain version, max abs err {max_err:.3e} "
          f"(gate rtol {NLM_TOL['rtol']}, atol {NLM_TOL['atol']})")
     return per_launch, max_err
@@ -634,8 +648,6 @@ def main() -> int:
     for name, (path, log) in built.items():
         _log(f"  {name}: {path.name}\n" + "\n".join("    " + l for l in log.splitlines()))
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     H, W = 448, 800
     cfgs = {"two_stage": presets.two_stage(), "enhanced": presets.enhanced()}
     # every B1 launch of both paths takes the cluster route
@@ -698,10 +710,13 @@ def main() -> int:
                             cfgs["two_stage"]).permute(0, 3, 1, 2).contiguous()
     with torch.inference_mode():
         want = model(x1)
-        got = model.cuda()(x1.cuda()).cpu()
+        got = stages.forward_logits(model.cuda(), x1.cuda()).cpu()
+        unpinned = model(x1.cuda()).cpu()
     err = float((got - want).abs().max())
     agree = float((got.argmax(1) == want.argmax(1)).float().mean())
-    _log(f"NestedUNet 512^2 logits cuda vs cpu: max abs err {err:.3e}, argmax agreement {agree:.6f}")
+    _log(f"NestedUNet 512^2 logits cuda (stages.forward_logits) vs cpu: max abs err {err:.3e}, "
+         f"argmax agreement {agree:.6f}; the bare forward under PyTorch's default flags "
+         f"(TF32 convs): max abs err {float((unpinned - want).abs().max()):.3e}")
     if not torch.allclose(got, want, atol=1e-3, rtol=1e-3):
         raise AssertionError(f"NestedUNet cuda logits differ from cpu by {err}")
     gflop = _conv_gflop(model, (512, 512))
@@ -719,7 +734,7 @@ def main() -> int:
             x = stages.model_input(stages.preprocess_frames(frames, cfg),
                                    cfg).permute(0, 3, 1, 2).contiguous()
             with torch.inference_mode():
-                fwd_ms = _time_ms(lambda: model(x), reps=5)
+                fwd_ms = _time_ms(lambda: stages.forward_logits(model, x), reps=5)
             _log(f"{path} NestedUNet fp32 b={b}: {ms:.3f} ms/batch, {b / ms * 1e3:.2f} frames/s; "
                  f"forward alone {fwd_ms:.3f} ms = {gflop * b / fwd_ms:.2f} TFLOP/s "
                  f"(device-resident frames; cable_px {outb.cable_px[:4].tolist()}...) [{card}]")

@@ -12,8 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import NLM_TOL, noisy_planes, stripe_masks
+from chip_smoke import NLM_TOL, noisy_planes, seeded_nested_unet, stripe_masks, synthetic_frames
 from unet_tpu_torch.ops import cc, cc_kernels, nlm_kernels
+from unet_tpu_torch.pipeline import presets, stages
 
 
 @pytest.fixture
@@ -26,7 +27,11 @@ def card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,search,template", [
     ((2, 40, 56), 9, 5), ((2, 40, 56), 21, 7), ((3, 100, 130), 21, 7),
-    ((1, 33, 65), 21, 3), ((2, 64, 96), 11, 11), ((1, 14, 14), 3, 1)])
+    ((1, 33, 65), 21, 3), ((2, 64, 96), 11, 11), ((1, 14, 14), 3, 1)] + [
+    # partial tiles and strips on both axes (tiles of 64 - 2T columns by 64
+    # rows, strips of 16 rows), a plane narrower than one strip, the main path
+    (shape, 21, template) for shape in ((1, 70, 130), (2, 45, 30), (3, 448, 800))
+    for template in (1, 3, 5, 7, 9, 11)])
 def test_nlm_kernel_matches_plain(card, shape, search, template):
     rng = np.random.default_rng(0)
     for img in (noisy_planes(shape, seed=2), (rng.random(shape) * 255).astype(np.float32)):
@@ -46,6 +51,37 @@ def test_nlm_kernel_refuses_what_it_does_not_take(card):
         nlm_kernels.nlm(x.transpose(1, 2), 10.0, 7, 21)
     with pytest.raises(ValueError):
         nlm_kernels.nlm(x.half(), 10.0, 7, 21)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("api", ["legacy", "per_operator"])
+def test_fp32_step_pins_its_conv_precision(card, api):
+    """With TF32 on process-wide (PyTorch's default for cuDNN convs, set
+    here by either API), the fp32 step's NestedUNet logits stay within the
+    1e-3 gate of tests/test_models_parity.py of the CPU's, and the flags are
+    as the step found them."""
+    b = torch.backends
+    saved = (b.cudnn.conv.fp32_precision, b.cudnn.rnn.fp32_precision, b.cudnn.fp32_precision)
+    try:
+        if api == "legacy":
+            b.cudnn.allow_tf32 = True
+        else:
+            b.cudnn.conv.fp32_precision = "tf32"
+        before = (b.cudnn.conv.fp32_precision, b.cudnn.rnn.fp32_precision)
+        model = seeded_nested_unet()
+        cfg = presets.two_stage().replace_in("preprocess", model_size=(256, 256))
+        frames = synthetic_frames(1, 224, 400, seed=0)
+        seen = []
+        hook = model.register_forward_hook(lambda m, i, o: seen.append(o.detach().cpu()))
+        stages.build_step(model, cfg, device=card)(frames)
+        hook.remove()
+        assert (b.cudnn.conv.fp32_precision, b.cudnn.rnn.fp32_precision) == before
+        x = stages.model_input(stages.geometric_preprocess(torch.from_numpy(frames), cfg), cfg)
+        with torch.inference_mode():
+            want = model.cpu()(x.permute(0, 3, 1, 2).contiguous())
+        torch.testing.assert_close(seen[0], want, atol=1e-3, rtol=1e-3)
+    finally:
+        b.cudnn.conv.fp32_precision, b.cudnn.rnn.fp32_precision, b.cudnn.fp32_precision = saved
 
 
 @pytest.mark.cuda

@@ -1,6 +1,9 @@
 """The port's two_stage and enhanced steps (unet_tpu_torch.pipeline.stages)
 against the JAX package's, end to end at model_size 64x64 on synthetic cable
 scenes."""
+import threading
+import time
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -159,6 +162,80 @@ def test_unported_branches_raise():
         stages.build_step(model, presets.enhanced(denoise="median"), device="cpu")
     with pytest.raises(NotImplementedError, match="A13"):
         NestedUNet(num_classes=3, pretrained_encoder=True)
+
+
+def _precision_flags():
+    b = torch.backends
+    return (b.cudnn.conv.fp32_precision, b.cudnn.rnn.fp32_precision,
+            b.cudnn.fp32_precision, b.cuda.matmul.fp32_precision, b.fp32_precision)
+
+
+class _PrecisionProbe(ColourClassModel):
+    """ColourClassModel that records the cuDNN conv precision its forward
+    runs under."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def forward(self, x):
+        self.seen.append(torch.backends.cudnn.conv.fp32_precision)
+        return super().forward(x)
+
+
+@pytest.mark.parametrize("start", ["default", "legacy_tf32_off", "conv_tf32", "conv_ieee"])
+def test_step_pins_fp32_convs_and_restores_the_flags(start):
+    """The step runs the forward with cuDNN convs in full fp32 (no TF32),
+    whatever the process-wide flags say, and leaves them as it found them."""
+    saved = _precision_flags()
+    try:
+        if start == "legacy_tf32_off":
+            torch.backends.cudnn.allow_tf32 = False
+        elif start != "default":
+            torch.backends.cudnn.conv.fp32_precision = start.split("_")[1]
+        before = _precision_flags()
+        probe = _PrecisionProbe()
+        step = stages.build_step(probe, _cfg(False), device="cpu")
+        step(synthetic_frames(1, H, W, seed=0, patch=14))
+        assert probe.seen == ["ieee"]
+        assert _precision_flags() == before
+    finally:
+        b = torch.backends
+        (b.cudnn.conv.fp32_precision, b.cudnn.rnn.fp32_precision, b.cudnn.fp32_precision,
+         b.cuda.matmul.fp32_precision, b.fp32_precision) = saved
+
+
+def test_forward_logits_from_threads_restores_the_flags():
+    """Forwards from several threads each run with fp32 convs and leave the
+    process-wide precision as it was. The threads start 10 ms apart and each
+    forward takes 50 ms, so unguarded set/restore pairs would interleave and
+    the last restore would leave "ieee"."""
+    saved = _precision_flags()
+    try:
+        torch.backends.cudnn.conv.fp32_precision = "tf32"
+        before = _precision_flags()
+
+        class Slow(_PrecisionProbe):
+            def forward(self, x):
+                out = super().forward(x)
+                time.sleep(0.05)
+                return out
+
+        probe = Slow()
+        x = torch.zeros(1, 3, 8, 8)
+        threads = [threading.Thread(target=stages.forward_logits, args=(probe, x))
+                   for _ in range(4)]
+        for t in threads:
+            t.start()
+            time.sleep(0.01)
+        for t in threads:
+            t.join()
+        assert probe.seen == ["ieee"] * 4
+        assert _precision_flags() == before
+    finally:
+        b = torch.backends
+        (b.cudnn.conv.fp32_precision, b.cudnn.rnn.fp32_precision, b.cudnn.fp32_precision,
+         b.cuda.matmul.fp32_precision, b.fp32_precision) = saved
 
 
 def test_build_step_cuda_without_card_raises():

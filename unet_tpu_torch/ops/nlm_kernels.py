@@ -14,7 +14,8 @@ tests/test_nlm_pallas.py).
 
 `nlm` dispatches on the device of its input: a CPU tensor goes to
 `nlm_plain`, a CUDA tensor launches the kernel or raises. `launches` counts
-kernel launches.
+kernel launches. On the card the weight comes from the MUFU exp2 alone,
+inside the gate.
 """
 from __future__ import annotations
 

@@ -7,7 +7,8 @@ The port runs the branches the `two_stage` and `enhanced` presets take:
   2. optional enhancement: CLAHE on Lab L, a denoiser (non-local means, the
      bilateral filter or none), sharpen
   3. BGR -> RGB, bilinear resize to the model size, / 255
-  4. model forward, argmax, nearest resize back to the frame, ROI limit
+  4. model forward (fp32, cuDNN convs without TF32: `forward_logits`),
+     argmax, nearest resize back to the frame, ROI limit
   5. the `canny_band` or `multiscale` burr stage on a static crop around the
      ROI
   6. class map (0 bg / 1 cable / 2 tape / 3 burr) and pixel counts
@@ -18,6 +19,7 @@ the model sees NCHW.
 """
 from __future__ import annotations
 
+import threading
 from typing import Callable, NamedTuple, Union
 
 import numpy as np
@@ -119,6 +121,34 @@ def model_input(frames_bgr: torch.Tensor, cfg: PipelineCfg) -> torch.Tensor:
     w, h = cfg.preprocess.model_size
     x = _image.resize_bilinear(_color.bgr2rgb(frames_bgr), (h, w))
     return x / 255.0
+
+
+# the cuDNN conv precision is process-wide: one forward sets and restores it
+# at a time, so that concurrent steps cannot leave it set
+_precision_lock = threading.Lock()
+
+
+def forward_logits(model: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """The fp32 model forward, (B, 3, h, w) -> (B, C, h, w) logits (the first
+    head where the model returns several), with cuDNN's convs in full fp32
+    whatever the process-wide setting, which is restored on return.
+    PyTorch's default runs fp32 convs in TF32 (10-bit mantissa), outside the
+    1e-3 logits gate the fp32 forward is held to
+    (tests/test_models_parity.py). Only the per-operator API is used: mixing
+    it with the legacy `allow_tf32` flag can raise. Forwards from several
+    threads run one at a time (their launches; the card's work stays
+    asynchronous)."""
+    conv = torch.backends.cudnn.conv
+    with _precision_lock:
+        old = conv.fp32_precision
+        conv.fp32_precision = "ieee"
+        try:
+            logits = model(x)
+        finally:
+            conv.fp32_precision = old
+    if isinstance(logits, (list, tuple)):
+        logits = logits[0]
+    return logits
 
 
 def extract_masks(logits: torch.Tensor, cfg: PipelineCfg):
@@ -238,10 +268,7 @@ def run_pipeline(model: nn.Module, frames_bgr: torch.Tensor,
     B, H, W = frames.shape[:3]
 
     x = model_input(frames, cfg).permute(0, 3, 1, 2).contiguous()
-    logits = model(x)
-    if isinstance(logits, (list, tuple)):
-        logits = logits[0]
-    cable_m, tape_m = extract_masks(logits, cfg)
+    cable_m, tape_m = extract_masks(forward_logits(model, x), cfg)
 
     cable = roi_limit(_image.resize_nearest(cable_m, (H, W), channel_dim=False),
                       cfg.roi, (H, W))
@@ -277,7 +304,9 @@ def build_step(model: nn.Module, cfg: PipelineCfg, device: Union[str, torch.devi
     """Returns step(frames_u8_bgr) -> FrameOutputs on `device`. The model is
     moved to `device` and put in eval mode; frames may be a numpy array or a
     tensor and are moved to `device`. There is no fallback: a `cuda` step
-    without a card raises."""
+    without a card raises. The forward runs in full fp32 whatever the
+    process-wide TF32 flags say, and leaves them as it found them
+    (`forward_logits`)."""
     _unsupported(cfg)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
