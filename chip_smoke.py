@@ -6,12 +6,13 @@ Phases; any failure exits non-zero and prints no result line:
   1. device: needs CUDA (no CPU fallback); prints the card's name and power
      limit as nvidia-smi reports them
   2. build: compiles every kernel of the paths from csrc/ with nvcc (one
-     process per source, all started together)
+     process per source, all started together): cc_propagate, nlm, qconv
   3. main paths, each driven once with every launch count set to 0 just
      before and read just after, with a fixed colour->class model:
      `two_stage` (b=8, 800x448; outputs equal to the same step on the CPU)
      and `enhanced` (b=8, 800x448 input turned to 448x800; class maps agree
-     >= 0.999 with the CPU route at b=2)
+     >= 0.999 with the CPU route at b=2). The bf16 and int8 `two_stage`
+     paths are driven in phase 6
   4. kernels: B1 (cc_propagate) against its plain version bit for bit, on
      the masks of tests/test_cc_pallas.py, on noise and serpentine masks at
      both paths' crop shapes, on masks that cross the cluster route's stripe
@@ -33,6 +34,20 @@ Phases; any failure exits non-zero and prints no result line:
      the unpinned forward under PyTorch's defaults is printed beside it),
      then ms per batch and frames/s of both presets at b=8 and b=32, and a
      profile of one b=32 step of each
+  6. the bf16 and int8 forwards of `two_stage` with the same weights
+     (`NestedUNet(dtype=bfloat16)`): `segment.fast_forward`, and the int8
+     forward with scales from `stages.calibrate_int8` on the card; each
+     driven at b=8 (launch counts: int8 18 qconv + 2 cc_propagate, bf16 0 +
+     2) and b=32, with ms per batch, frames/s, the forward alone and its
+     TFLOP/s or TOP/s, and a profile of one b=32 step; `validate_int8`
+     against the bf16 model's plain step and the int8 and bf16 class maps
+     against the fp32 step's; bf16 logits against fp32 on one 512^2 frame;
+     the int8 forward on the card against the CPU's (plain versions) on one
+     512^2 frame, every one of its 19 int8 tensors bit for bit. Then qconv
+     (`phase_qconv`) against its plain version bit for bit on ragged and
+     small shapes, both forms and both compute types, and on every input
+     the int8 path gave it at b=8, each timed beside its bound, its plain
+     version and torch._int_mm over an im2col of the same conv
 Then, on the last two lines, the kernels' JSON record and
 {"ok": true, "device": {...}}.
 
@@ -55,6 +70,7 @@ import torch.nn as nn
 MEM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12
 FP32_OPS_PER_S = 67e12
+INT8_TENSOR_OPS_PER_S = 1979e12   # dense int8 tensor-core rate
 SFU_PER_SM_PER_CLOCK = 16     # exp2 (MUFU) results per SM per clock on Hopper
 NLM_TOL = dict(rtol=2e-5, atol=2e-3)   # the gate of tests/test_nlm_pallas.py
 
@@ -127,12 +143,14 @@ class ColourClassModel(nn.Module):
         return nn.functional.one_hot(cls, 3).permute(0, 3, 1, 2).float() * 10.0
 
 
-def seeded_nested_unet(num_classes: int = 3, seed: int = 0) -> nn.Module:
+def seeded_nested_unet(num_classes: int = 3, seed: int = 0,
+                       dtype: torch.dtype = torch.float32) -> nn.Module:
     """NestedUNet with He-normal convs and non-trivial BN statistics, all
-    drawn from numpy's generator with `seed`."""
+    drawn from numpy's generator with `seed`; float32 parameters, compute
+    type `dtype`."""
     from unet_tpu_torch.models import NestedUNet
 
-    model = NestedUNet(num_classes=num_classes, deep_supervision=False)
+    model = NestedUNet(num_classes=num_classes, deep_supervision=False, dtype=dtype)
     r = np.random.default_rng(seed)
     sd = {}
     for k, v in model.state_dict().items():
@@ -506,11 +524,14 @@ def phase_nlm(recorded, sms, clock_hz):
 def _record_main_path_inputs(step, frames, path: str):
     """Run the step once, keeping a copy of every kernel input: returns
     ({site: (state0, fg, kwargs)} for cc_propagate, {site: (x, h, template,
-    search)} for nlm, whose calls come as L, a, b)."""
-    from unet_tpu_torch.ops import cc_kernels, nlm_kernels
+    search)} for nlm, whose calls come as L, a, b, and {site: (x, wq, mult,
+    bias)} for qconv, whose calls come as the blocks' conv1 and conv2 in
+    BLOCK_NAMES order)."""
+    from unet_tpu_torch.models.fast_forward import BLOCK_NAMES
+    from unet_tpu_torch.ops import cc_kernels, nlm_kernels, qconv_kernels
 
-    cc_rec, nlm_rec = {}, {}
-    real_cc, real_nlm = cc_kernels.propagate, nlm_kernels.nlm
+    cc_rec, nlm_rec, q_rec = {}, {}, {}
+    real_cc, real_nlm, real_q = cc_kernels.propagate, nlm_kernels.nlm, qconv_kernels.qconv
 
     def cc_spy(state0, fg, **kw):
         site = "hysteresis" if state0.shape[1] == 1 else "cc_filter"
@@ -521,29 +542,35 @@ def _record_main_path_inputs(step, frames, path: str):
         nlm_rec[f"{path}/nlm_{'Lab'[len(nlm_rec)]}"] = (x.clone(), h, template, search)
         return real_nlm(x, h, template, search)
 
-    cc_kernels.propagate, nlm_kernels.nlm = cc_spy, nlm_spy
+    def q_spy(x, wq, mult, bias):
+        i = len(q_rec)
+        copy = tuple(t.clone() for t in x) if isinstance(x, tuple) else x.clone()
+        q_rec[f"{path}/{BLOCK_NAMES[i // 2]}.conv{i % 2 + 1}"] = (copy, wq, mult, bias)
+        return real_q(x, wq, mult, bias)
+
+    cc_kernels.propagate, nlm_kernels.nlm, qconv_kernels.qconv = cc_spy, nlm_spy, q_spy
     try:
         step(frames)
     finally:
-        cc_kernels.propagate, nlm_kernels.nlm = real_cc, real_nlm
-    return cc_rec, nlm_rec
+        cc_kernels.propagate, nlm_kernels.nlm, qconv_kernels.qconv = real_cc, real_nlm, real_q
+    return cc_rec, nlm_rec, q_rec
 
 
 def _drive(step, frames, expect, what):
     """One batch through `step` with every launch count set to 0 just
     before and read just after; fails unless each kernel launched exactly
     as `expect` says. Returns (outputs, counts)."""
-    from unet_tpu_torch.ops import cc_kernels, nlm_kernels
+    from unet_tpu_torch.ops import cc_kernels, nlm_kernels, qconv_kernels
 
     torch.cuda.synchronize()
     cc_kernels.launches = cc_kernels.launches_cluster = cc_kernels.launches_global = 0
-    nlm_kernels.launches = 0
+    nlm_kernels.launches = qconv_kernels.launches = 0
     out = step(frames)
     torch.cuda.synchronize()
     got = {"cc_propagate": cc_kernels.launches,
            "cc_propagate_cluster": cc_kernels.launches_cluster,
            "cc_propagate_global": cc_kernels.launches_global,
-           "nlm": nlm_kernels.launches}
+           "nlm": nlm_kernels.launches, "qconv": qconv_kernels.launches}
     _log(f"main path ({what}): launches {got}")
     if got != expect:
         raise AssertionError(f"{what}: expected launches {expect}, got {got}")
@@ -602,7 +629,8 @@ def _profile_step(step, frames, step_ms: float, what: str) -> None:
         return
     _log(f"profile ({what}, one b={frames.shape[0]} step): device busy {busy / 1e3:.3f} ms "
          f"of {step_ms:.3f} ms per step, idle share {max(0.0, 1 - busy / 1e3 / step_ms):.4f}")
-    for name in ("nlm_kernel", "cc_propagate_cluster_kernel", "cc_propagate_global_kernel"):
+    for name in ("nlm_kernel", "cc_propagate_cluster_kernel", "cc_propagate_global_kernel",
+                 "qconv_kernel"):
         t = sum(dev(e) for e in evts if name in e.key)
         _log(f"  {name}: {t / 1e3:.3f} ms, {t / busy:.4f} of device busy time")
     for e in sorted(evts, key=dev, reverse=True)[:12]:
@@ -618,6 +646,193 @@ def _time_step(step, frames, reps: int = 5) -> float:
         step(frames)
     torch.cuda.synchronize()
     return (time.perf_counter() - t) / reps * 1e3
+
+
+def _qconv_bound_ms(x, wq, mult):
+    """Least time for one qconv launch, and what bounds it: the 2 M N 9 C
+    int8 operations at the dense int8 tensor rate, or the bytes (each input
+    read once, the weights and the epilogue once, the int8 output written
+    once) at the HBM rate."""
+    srcs = x if isinstance(x, tuple) else (x,)
+    B, H, W = srcs[0].shape[:3]
+    N, cin = wq.shape[0], wq.shape[-1]
+    ops = 2 * B * H * W * N * 9 * cin
+    nbytes = (sum(t.numel() for t in srcs) + wq.numel() + B * H * W * N
+              + 2 * N * mult.element_size())
+    ops_ms, bytes_ms = ops / INT8_TENSOR_OPS_PER_S * 1e3, nbytes / MEM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms > bytes_ms else (bytes_ms, "bytes")
+
+
+def _im2col_int8(x):
+    """(B, H, W, C) int8 NHWC (a pair concatenated) -> (B H W, K) int8 with
+    k = tap * C + c (the kernel's weight order), K padded to a multiple of
+    8 for torch._int_mm."""
+    xs = torch.cat(list(x), dim=-1) if isinstance(x, tuple) else x
+    B, H, W, C = xs.shape
+    xp = nn.functional.pad(xs, (0, 0, 1, 1, 1, 1))
+    cols = torch.cat([xp[:, dy:dy + H, dx:dx + W] for dy in range(3) for dx in range(3)],
+                     dim=-1).reshape(B * H * W, 9 * C)
+    return nn.functional.pad(cols, (0, -(9 * C) % 8))
+
+
+def phase_qconv(recorded, device="cuda"):
+    """qconv against its plain version, bit for bit: every tile width, both
+    source paths, both forms and both compute types on small and ragged
+    shapes (the Cin = 3 layer among them), then every input the int8 path
+    gave it. At those inputs, each launch timed beside its bound, its plain
+    version and torch._int_mm over an im2col of the same conv (the library
+    yardstick; its accumulator, requantized by the plain epilogue, must give
+    the kernel's output). Returns (per-launch records, max abs error,
+    library ms summed over the launches or None)."""
+    from unet_tpu_torch.ops import qconv_kernels
+
+    max_err, n = 0, 0
+
+    def check(x, wq, mult, bias, what):
+        nonlocal max_err, n
+        got = qconv_kernels.qconv(x, wq, mult, bias)
+        want = qconv_kernels.qconv_plain(x, wq, mult, bias)
+        torch.cuda.synchronize()
+        err = int((got.int() - want.int()).abs().max()) if got.numel() else 0
+        max_err, n = max(max_err, err), n + 1
+        if err:
+            raise AssertionError(f"qconv != plain on {what}: max abs err {err}")
+
+    rng = np.random.default_rng(77)
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, cin, cout, pair, signed in (
+                ((2, 32, 32), 3, 32, False, True), ((1, 7, 9), 5, 10, False, True),
+                ((2, 5, 3), 37, 33, True, False), ((1, 33, 65), 96, 32, True, False),
+                ((2, 16, 16), 192, 64, True, False), ((1, 8, 8), 768, 256, True, False),
+                ((3, 4, 4), 256, 512, False, False), ((1, 130, 3), 64, 128, False, False)):
+            cuts = (cin // 3, cin - cin // 3) if pair else (cin,)
+            lo = -127 if signed else 0
+            xs = tuple(torch.from_numpy(rng.integers(lo, 128, shape + (c,)).astype(np.int8)).to(device)
+                       for c in cuts)
+            wq = torch.from_numpy(rng.integers(-127, 128, (cout, 3, 3, cin)).astype(np.int8)).to(device)
+            spread = np.sqrt(9 * cin) * 5340 / 40
+            mult = torch.from_numpy(rng.uniform(0.5, 2, cout) / spread).float().to(dtype).to(device)
+            bias = torch.from_numpy(rng.uniform(-20, 80, cout)).float().to(dtype).to(device)
+            check(xs if pair else xs[0], wq, mult, bias, f"{shape} Cin {cin} Cout {cout} "
+                  f"{'pair' if pair else 'single'} {dtype}")
+
+    per_launch, lib_total = [], 0.0
+    for site, (x, wq, mult, bias) in recorded.items():
+        check(x, wq, mult, bias, f"main-path {site}")
+        srcs = x if isinstance(x, tuple) else (x,)
+        shape = [list(t.shape) for t in srcs]
+        ms = _time_ms(lambda: qconv_kernels.qconv(x, wq, mult, bias), reps=10)
+        plain_ms = _time_ms(lambda: qconv_kernels.qconv_plain(x, wq, mult, bias), reps=2)
+        bound, bound_by = _qconv_bound_ms(x, wq, mult)
+        B, H, W = srcs[0].shape[:3]
+        N = wq.shape[0]
+        cols = _im2col_int8(x)
+        wmat = nn.functional.pad(wq.reshape(N, -1), (0, cols.shape[1] - wq[0].numel()))
+        lib = lambda: torch._int_mm(cols, wmat.t())
+        acc = lib().reshape(B, H, W, N)
+        if not torch.equal(qconv_kernels.requant_plain(acc, mult, bias),
+                           qconv_kernels.qconv(x, wq, mult, bias)):
+            raise AssertionError(f"torch._int_mm's accumulator disagrees with qconv at {site}")
+        library_ms = _time_ms(lib, reps=10)
+        lib_total += library_ms
+        ops = 2 * B * H * W * N * 9 * wq.shape[-1]
+        per_launch.append(dict(site=site, shape=shape, cout=N, ms=ms, plain_ms=plain_ms,
+                               bound_ms=bound, bound_by=bound_by, library_ms=library_ms,
+                               tops=ops / ms / 1e9))
+        _log(f"kernel qconv {site} {shape} -> {N}: {ms:.4f} ms/launch "
+             f"({ops / ms / 1e9:.1f} TOP/s), plain {plain_ms:.4f} ms, bound {bound:.5f} ms "
+             f"({bound_by}), torch._int_mm over an im2col {library_ms:.4f} ms")
+    _log(f"kernels: qconv, {n} comparisons with the plain version, all bit-identical")
+    return per_launch, max_err, lib_total
+
+
+def phase_low_precision(cfg, expect, counts, gflop, card, H, W, device="cuda"):
+    """The bf16 fast forward and the calibrated int8 forward of `two_stage`,
+    both with `seeded_nested_unet(dtype=bfloat16)`: calibration on the
+    card, each path driven at b=8 (launch counts checked; the int8 path's
+    qconv inputs recorded) and b=32, timed, profiled at b=32; agreement
+    with the fp32 step; bf16 logits against fp32 and the int8 forward on
+    the card against the CPU's on one 512^2 frame. Returns ({path: {b:
+    times}}, the qconv inputs, {check: value})."""
+    from unet_tpu_torch.models import quantized
+    from unet_tpu_torch.pipeline import stages
+
+    model = seeded_nested_unet(dtype=torch.bfloat16)
+    model32 = seeded_nested_unet()
+    t = time.time()
+    calib = [synthetic_frames(8, H, W, seed=s) for s in (20, 28)]
+    qcfg = stages.calibrate_int8(model, cfg, calib, device=device)
+    _log(f"calibrate_int8 on the card: {len(qcfg.segment.int8_scales)} scales from 2 batches "
+         f"of 8 in {time.time() - t:.1f} s; input {dict(qcfg.segment.int8_scales)['input']:.6f}, "
+         f"conv0_4.relu2 {dict(qcfg.segment.int8_scales)['conv0_4.relu2']:.6f}")
+    cfgs = {"two_stage_bf16": cfg.replace_in("segment", fast_forward=True),
+            "two_stage_int8": qcfg}
+    checks, timings, q_rec = {}, {}, {}
+    step32 = stages.build_step(model32, cfg, device=device)
+    for path, pcfg in cfgs.items():
+        step = stages.build_step(model, pcfg, device=device)
+        fwd = stages.segment_forward(model, pcfg, device)
+        unit, what = ("TOP/s", "int8") if path.endswith("int8") else ("TFLOP/s", "bf16")
+        timings[path] = {}
+        for b in (8, 32):
+            frames = torch.from_numpy(synthetic_frames(b, H, W, seed=10)).to(device)
+            if b == 8 and path.endswith("int8"):
+                q_rec.update(_record_main_path_inputs(step, frames, path)[2])
+            outb, got = _drive(step, frames, expect[path], f"{path}, NestedUNet 512^2, b={b}")
+            if b == 8:
+                counts[path] = got
+            _check_outputs(outb, b, H, W, f"{path} b={b}")
+            ms = _time_step(step, frames)
+            x = stages.model_input(stages.preprocess_frames(frames, pcfg), pcfg)
+            with torch.inference_mode():
+                fwd_ms = _time_ms(lambda: fwd(x), reps=5)
+                ref = step32(frames)
+            agree = float((outb.class_map == ref.class_map).float().mean())
+            _log(f"{path} NestedUNet {what} b={b}: {ms:.3f} ms/batch, {b / ms * 1e3:.2f} "
+                 f"frames/s; forward alone {fwd_ms:.3f} ms = {gflop * b / fwd_ms:.2f} {unit} "
+                 f"({gflop:.2f} G per frame); class maps vs the fp32 step {agree:.6f} "
+                 f"(cable_px {outb.cable_px[:4].tolist()}...) [{card}]")
+            timings[path][b] = dict(ms=ms, frames_per_s=b / ms * 1e3, forward_ms=fwd_ms,
+                                    class_map_agreement_vs_fp32=agree)
+            checks[f"{path}_b{b}_class_maps_vs_fp32"] = agree
+        _profile_step(step, frames, timings[path][32]["ms"], f"{path} NestedUNet")
+
+    frames = synthetic_frames(8, H, W, seed=40)
+    checks["validate_int8"] = stages.validate_int8(model, cfg, qcfg, frames, device=device)
+    _log(f"validate_int8 (int8 step against the bf16 model's plain step, b=8): "
+         f"{checks['validate_int8']:.6f}")
+
+    # one 512^2 frame: bf16 logits against fp32; the int8 forward on the card vs the CPU
+    x1 = stages.model_input(stages.geometric_preprocess(
+        torch.from_numpy(synthetic_frames(1, H, W, seed=0)), cfg), cfg)
+    with torch.inference_mode():
+        ff = stages.segment_forward(model, cfgs["two_stage_bf16"], device)(x1.to(device)).float().cpu()
+        f32 = stages.forward_logits(model32.to(device), x1.permute(0, 3, 1, 2).contiguous().to(device)).cpu()
+        checks["bf16_logits_max_abs_err_vs_fp32"] = float((ff - f32).abs().max())
+        checks["bf16_argmax_agreement_vs_fp32"] = float((ff.argmax(1) == f32.argmax(1)).float().mean())
+        sd, scales = model.state_dict(), qcfg.segment.int8_scales
+        taps_cpu, taps_card = {}, {}
+        t = time.time()
+        want = quantized.nested_unet_forward_int8(
+            quantized.prepare_int8_params(sd, scales, torch.bfloat16, "cpu"), x1, taps_cpu)
+        cpu_s = time.time() - t
+        got = quantized.nested_unet_forward_int8(
+            quantized.prepare_int8_params(sd, scales, torch.bfloat16, device), x1.to(device), taps_card)
+    for name in quantized.TAP_NAMES:
+        if not torch.equal(taps_card[name].cpu(), taps_cpu[name]):
+            raise AssertionError(f"int8 tap {name} differs between the card and the CPU")
+    checks["int8_taps_bit_identical_card_vs_cpu"] = len(quantized.TAP_NAMES)
+    checks["int8_argmax_agreement_card_vs_cpu"] = float(
+        (got.float().cpu().argmax(-1) == want.float().argmax(-1)).float().mean())
+    checks["int8_logits_max_abs_err_card_vs_cpu"] = float((got.float().cpu() - want.float()).abs().max())
+    _log(f"bf16 fast forward vs fp32 logits (512^2): max abs err "
+         f"{checks['bf16_logits_max_abs_err_vs_fp32']:.4e}, argmax agreement "
+         f"{checks['bf16_argmax_agreement_vs_fp32']:.6f}")
+    _log(f"int8 forward card vs CPU (512^2, plain versions on the CPU in {cpu_s:.1f} s): all "
+         f"{len(quantized.TAP_NAMES)} int8 tensors bit-identical; logits max abs err "
+         f"{checks['int8_logits_max_abs_err_card_vs_cpu']:.4e}, argmax agreement "
+         f"{checks['int8_argmax_agreement_card_vs_cpu']:.6f}")
+    return timings, q_rec, checks
 
 
 def main() -> int:
@@ -643,7 +858,7 @@ def main() -> int:
     _log(card)
 
     t = time.time()
-    built = _build.build_all(["cc_propagate", "nlm"])
+    built = _build.build_all(["cc_propagate", "nlm", "qconv"])
     _log(f"build: {len(built)} kernel source(s) in {time.time() - t:.1f} s")
     for name, (path, log) in built.items():
         _log(f"  {name}: {path.name}\n" + "\n".join("    " + l for l in log.splitlines()))
@@ -651,10 +866,10 @@ def main() -> int:
     H, W = 448, 800
     cfgs = {"two_stage": presets.two_stage(), "enhanced": presets.enhanced()}
     # every B1 launch of both paths takes the cluster route
-    expect = {"two_stage": {"cc_propagate": 2, "cc_propagate_cluster": 2,
-                            "cc_propagate_global": 0, "nlm": 0},
-              "enhanced": {"cc_propagate": 2, "cc_propagate_cluster": 2,
-                           "cc_propagate_global": 0, "nlm": 3}}
+    b1 = {"cc_propagate": 2, "cc_propagate_cluster": 2, "cc_propagate_global": 0}
+    expect = {"two_stage": dict(b1, nlm=0, qconv=0), "enhanced": dict(b1, nlm=3, qconv=0),
+              "two_stage_bf16": dict(b1, nlm=0, qconv=0),
+              "two_stage_int8": dict(b1, nlm=0, qconv=18)}
     scenes = {"two_stage": lambda b, seed: synthetic_frames(b, H, W, seed=seed),
               "enhanced": lambda b, seed: enhanced_scenes(b, H, W, seed=seed)}
 
@@ -741,7 +956,14 @@ def main() -> int:
             timings[path][b] = dict(ms=ms, frames_per_s=b / ms * 1e3, forward_ms=fwd_ms)
         _profile_step(step, frames, timings[path][32]["ms"], f"{path} NestedUNet")
 
-    def entry(name, source, replaces, per_launch, max_err, by_path, **extra):
+    # -- the bf16 and int8 forwards of two_stage
+    low, q_rec, int8_checks = phase_low_precision(cfgs["two_stage"], expect, counts, gflop,
+                                                  card, H, W)
+    timings.update(low)
+    q_launch, q_err, q_lib = phase_qconv(q_rec)
+
+    def entry(name, source, replaces, per_launch, max_err, by_path, library_ms=None,
+              **extra):
         # ms / plain_ms / bound_ms: every counted main-path launch of one b=8
         # batch per path, summed, to match `launches`
         keys = ("ms", "plain_ms", "bound_ms") + (("global_ms",) if "global_ms" in per_launch[0] else ())
@@ -750,7 +972,7 @@ def main() -> int:
                 "launches": sum(by_path.values()), "launches_per_path": by_path,
                 "max_abs_err": max_err, **total,
                 "bound_by": max(per_launch, key=lambda p: p["bound_ms"])["bound_by"],
-                "library_ms": None, "per_launch": per_launch, **extra}
+                "library_ms": library_ms, "per_launch": per_launch, **extra}
 
     record = {"kernels": [
         entry("cc_propagate", "unet_tpu_torch/csrc/cc_propagate.cu",
@@ -761,7 +983,12 @@ def main() -> int:
               trace=cc_trace, trace_global_by_batch=cc_batches),
         entry("nlm", "unet_tpu_torch/csrc/nlm.cu", "unet_tpu/ops/nlm_pallas.py:96",
               nlm_launch, nlm_err, {p: c["nlm"] for p, c in counts.items() if c["nlm"]}),
-    ], "slice_ms_per_batch": timings, "card": card,
+        entry("qconv", "unet_tpu_torch/csrc/qconv.cu", "unet_tpu/models/quantized.py:183",
+              q_launch, q_err, {p: c["qconv"] for p, c in counts.items() if c["qconv"]},
+              library_ms=q_lib, library="torch._int_mm over an im2col (the conv's int32 "
+              "accumulator only)", tpu_kernel=False,
+              note="not a TPU kernel: the JAX package's _qconv + _requant run as XLA ops"),
+    ], "slice_ms_per_batch": timings, "int8_checks": int8_checks, "card": card,
         "seconds": round(time.time() - t_start, 1)}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

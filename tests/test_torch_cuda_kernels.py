@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from chip_smoke import NLM_TOL, noisy_planes, seeded_nested_unet, stripe_masks, synthetic_frames
-from unet_tpu_torch.ops import cc, cc_kernels, nlm_kernels
+from unet_tpu_torch.models import quantized
+from unet_tpu_torch.ops import cc, cc_kernels, nlm_kernels, qconv_kernels
 from unet_tpu_torch.pipeline import presets, stages
 
 
@@ -187,3 +188,118 @@ def test_cc_global_route_matches_the_cluster_route(card):
         kw = dict(pool_iters=pool, max_iters=iters[-1])
         assert torch.equal(cc_kernels.propagate_global(state0, fg, **kw),
                            cc_kernels.propagate_cluster(state0, fg, cluster=8, **kw))
+
+
+def _qconv_case(shape, cin, n, pair, signed, dtype, seed=0):
+    """Random codes for `qconv`: sources (one, or a pair splitting `cin`),
+    OHWI weights and an epilogue in `dtype` whose outputs span 0..127."""
+    rng = np.random.default_rng(seed)
+    lo = -127 if signed else 0
+    cuts = (cin,) if not pair else (cin // 3, cin - cin // 3)
+    srcs = tuple(torch.from_numpy(rng.integers(lo, 128, shape + (c,)).astype(np.int8))
+                 for c in cuts)
+    wq = torch.from_numpy(rng.integers(-127, 128, (n, 3, 3, cin)).astype(np.int8))
+    spread = np.sqrt(9 * cin) * 5340 / 40      # acc's std over 40: y spans about +-40
+    mult = torch.from_numpy((rng.uniform(0.5, 2.0, n) / spread).astype(np.float32)).to(dtype)
+    bias = torch.from_numpy(rng.uniform(-20, 80, n).astype(np.float32)).to(dtype)
+    return (srcs if pair else srcs[0]), wq, mult, bias
+
+
+def _to(x, dev):
+    return tuple(t.to(dev) for t in x) if isinstance(x, tuple) else x.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,cin,n,pair,signed", [
+    ((2, 32, 32), 3, 32, False, True),       # conv0_0.conv1: Cin 3, the byte path
+    ((1, 7, 9), 5, 10, False, True),         # ragged: odd N, Cin and plane
+    ((2, 5, 3), 37, 33, True, False),        # a ragged pair (byte path)
+    ((2, 64, 64), 32, 32, False, False),     # conv0_0.conv2
+    ((1, 33, 65), 96, 32, True, False),      # conv0_4.conv1's pair form, ragged plane
+    ((2, 16, 16), 192, 64, True, False),     # conv1_3.conv1
+    ((1, 8, 8), 768, 256, True, False),      # conv3_1.conv1
+    ((3, 4, 4), 256, 512, False, False),     # conv4_0.conv1
+    ((1, 130, 3), 64, 128, False, False),    # 128-pixel tiles cut across rows
+])
+def test_qconv_matches_plain(card, dtype, shape, cin, n, pair, signed):
+    """The kernel bit for bit against `qconv_plain`, single and pair forms,
+    every tile width (N % 128, % 64, else 32), both source paths (16-byte
+    copies when every source's channel count is a multiple of 32, bytes
+    otherwise) and both compute types."""
+    x, wq, mult, bias = _qconv_case(shape, cin, n, pair, signed, dtype)
+    if pair:
+        assert (x[0].shape[-1] % 32 == 0) == (cin % 96 == 0)
+    xd, wd, md, bd = _to(x, card), wq.to(card), mult.to(card), bias.to(card)
+    before = qconv_kernels.launches
+    got = qconv_kernels.qconv(xd, wd, md, bd)
+    torch.cuda.synchronize()
+    assert qconv_kernels.launches == before + 1
+    want = qconv_kernels.qconv_plain(xd, wd, md, bd)
+    assert got.shape == shape + (n,) and got.dtype == torch.int8
+    assert torch.equal(got, want)
+    assert 0 < int(got.float().mean()) and int(got.max()) == 127  # the epilogue's range is used
+    assert torch.equal(got.cpu(), qconv_kernels.qconv_plain(x, wq, mult, bias))
+
+
+@pytest.mark.cuda
+def test_qconv_refuses_what_it_does_not_take(card):
+    x, wq, mult, bias = _qconv_case((1, 8, 8), 32, 32, False, False, torch.bfloat16)
+    x, wq, mult, bias = x.to(card), wq.to(card), mult.to(card), bias.to(card)
+    with pytest.raises(ValueError, match="contiguous"):
+        qconv_kernels.qconv(x.transpose(1, 2), wq, mult, bias)
+    with pytest.raises(ValueError, match="int8"):
+        qconv_kernels.qconv(x.float(), wq, mult, bias)
+    with pytest.raises(ValueError, match="wq"):
+        qconv_kernels.qconv(x, wq[:, :, :, :16], mult, bias)
+    with pytest.raises(ValueError, match="share"):
+        qconv_kernels.qconv(x, wq, mult, bias.float())
+    with pytest.raises(ValueError, match="device"):
+        qconv_kernels.qconv(x, wq.cpu(), mult, bias)
+
+
+@pytest.mark.cuda
+def test_int8_forward_on_the_card_equals_the_cpu(card):
+    """The int8 forward through the kernel on the card and through the
+    plain versions on the CPU, with the same weights and scales: every one
+    of the 19 int8 tensors equal, logits within bf16 rounding."""
+    model = seeded_nested_unet()
+    x = torch.from_numpy(np.random.default_rng(3).random((2, 64, 64, 3)).astype(np.float32))
+    scales = quantized.calibrate(model.state_dict(), [x])
+    qp_cpu = quantized.prepare_int8_params(model.state_dict(), scales)
+    qp_card = quantized.prepare_int8_params(model.state_dict(), scales, device=card)
+    taps_cpu, taps_card = {}, {}
+    before = qconv_kernels.launches
+    with torch.inference_mode():
+        want = quantized.nested_unet_forward_int8(qp_cpu, x, taps_cpu)
+        got = quantized.nested_unet_forward_int8(qp_card, x.to(card), taps_card)
+    torch.cuda.synchronize()
+    assert qconv_kernels.launches == before + 18
+    assert sorted(taps_card) == sorted(quantized.TAP_NAMES)
+    for name in quantized.TAP_NAMES:
+        assert torch.equal(taps_card[name].cpu(), taps_cpu[name]), name
+    torch.testing.assert_close(got.float().cpu(), want.float(), atol=0.05, rtol=0.02)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["fast_forward", "int8"])
+def test_bf16_and_int8_steps_on_the_card(card, route):
+    """The two_stage step with the bf16 fast forward or calibrated int8
+    scales, on the card against the same step on the CPU: class maps agree
+    on >= 0.995 of the pixels (int8: equal int8 tensors, bf16 head in
+    another summation order; bf16: cuDNN against the CPU's convs)."""
+    model = seeded_nested_unet(dtype=torch.bfloat16)
+    cfg = presets.two_stage().replace_in("preprocess", model_size=(128, 128))
+    frames = synthetic_frames(2, 224, 400, seed=1)
+    if route == "int8":
+        cfg = stages.calibrate_int8(model, cfg, [frames], device=card)
+        assert len(cfg.segment.int8_scales) == 19
+    else:
+        cfg = cfg.replace_in("segment", fast_forward=True)
+    before = qconv_kernels.launches
+    got = stages.build_step(model, cfg, device=card)(frames)
+    torch.cuda.synchronize()
+    assert qconv_kernels.launches - before == (18 if route == "int8" else 0)
+    want = stages.build_step(model, cfg, device="cpu")(frames)
+    agree = float((got.class_map.cpu() == want.class_map).float().mean())
+    assert agree >= 0.995, agree

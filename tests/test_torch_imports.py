@@ -21,8 +21,9 @@ def _modules():
 
 def test_every_module_imports_without_jax():
     mods = ["unet_tpu_torch"] + _modules() + ["chip_smoke"]
-    for m in ("cc_kernels", "nlm_kernels", "clahe", "frames"):
-        assert f"unet_tpu_torch.ops.{m}" in mods
+    for m in ("ops.cc_kernels", "ops.nlm_kernels", "ops.qconv_kernels", "ops.clahe",
+              "ops.frames", "models.fast_forward", "models.quantized"):
+        assert f"unet_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

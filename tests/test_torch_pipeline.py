@@ -238,6 +238,36 @@ def test_forward_logits_from_threads_restores_the_flags():
          b.cuda.matmul.fp32_precision, b.fp32_precision) = saved
 
 
+def test_chip_smoke_low_precision_phases_run_on_the_cpu(monkeypatch):
+    """chip_smoke.py's bf16/int8 phase and qconv phase, end to end on the
+    CPU at a small size (plain versions, so no kernel launches and zero
+    counts; the card's timers replaced by host clocks): the rehearsal of the
+    chip run's new code."""
+    import chip_smoke as cs
+
+    def host_ms(fn, reps=1, warmup=0):
+        t = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t) * 1e3
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(cs, "_time_ms", host_ms)
+    monkeypatch.setattr(cs, "_time_step", lambda step, frames, reps=1: host_ms(lambda: step(frames)))
+    monkeypatch.setattr(cs, "_profile_step", lambda *a, **k: None)
+    zero = {"cc_propagate": 0, "cc_propagate_cluster": 0, "cc_propagate_global": 0,
+            "nlm": 0, "qconv": 0}
+    expect = {"two_stage_bf16": zero, "two_stage_int8": zero}
+    counts = {}
+    cfg = presets.two_stage().replace_in("preprocess", model_size=(32, 32))
+    timings, q_rec, checks = cs.phase_low_precision(cfg, expect, counts, 1.0, "cpu", 112, 200,
+                                                    device="cpu")
+    assert set(timings) == set(counts) == {"two_stage_bf16", "two_stage_int8"}
+    assert checks["int8_taps_bit_identical_card_vs_cpu"] == 19
+    assert len(q_rec) == 18
+    per_launch, max_err, library_ms = cs.phase_qconv(q_rec, device="cpu")
+    assert len(per_launch) == 18 and max_err == 0 and library_ms > 0
+
+
 def test_build_step_cuda_without_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a card is present")

@@ -5,8 +5,11 @@ imports). Plain tensor code is PyTorch; the TPU's Pallas kernels become
 kernels written by hand for `sm_90a` under `csrc/`, built with `nvcc` at
 first use (`unet_tpu_torch._build`) and bound with `ctypes`.
 
-Slice 1 runs the `two_stage` preset end to end:
-`pipeline.stages.build_step(model, presets.two_stage(), device="cuda")`.
+It runs the `two_stage` and `enhanced` presets end to end:
+`pipeline.stages.build_step(model, presets.two_stage(), device="cuda")`;
+`two_stage` also with the bf16 fast forward (`segment.fast_forward` and
+`NestedUNet(dtype=torch.bfloat16)`) and the int8 forward
+(`stages.calibrate_int8`).
 
 Layout conventions are the JAX package's at every public function, so the
 parity tests compare like with like:

@@ -1,5 +1,6 @@
 """Flax variables -> PyTorch state dict (the inverse of
-unet_tpu/models/convert.py:40-147 `convert_state_dict` for `nested_unet`).
+unet_tpu/models/convert.py:40-147 `convert_state_dict` for `nested_unet`),
+and the JAX package's int8 parameters -> the port's (`qparams_from_jax`).
 
 Input is the JAX package's `{"params": ..., "batch_stats": ...}` tree with
 numpy (or array-like) leaves; no JAX import is needed. Conv kernels go
@@ -51,3 +52,30 @@ def state_dict_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         if ds in params:
             _conv(sd, ds, params[ds])
     return sd
+
+
+def qparams_from_jax(qp: Any, dtype: torch.dtype = torch.bfloat16, device="cpu"):
+    """The JAX package's `QParams` (unet_tpu/models/quantized.py:53-58,
+    prepared with `pack_max_cout=0`; numpy or array-like leaves) -> the
+    port's `models.quantized.QParams` with compute type `dtype`: int8
+    weights HWIO -> OHWI, s_w and b as they are, the requant epilogue
+    computed from them and the scales as the port computes it. Raises
+    ValueError on a phase-packed layer."""
+    from unet_tpu_torch.models.quantized import QParams, qlayer
+
+    blocks = {}
+    for name, pair in qp.blocks.items():
+        layers = []
+        for i, l in enumerate(pair):
+            if l.packed:
+                raise ValueError(f"{name} conv{i + 1} is phase-packed: prepare the JAX "
+                                 f"parameters with pack_max_cout=0")
+            wq = _t(np.transpose(np.asarray(l.wq), (3, 0, 1, 2)))
+            q = qlayer(wq, _t(np.asarray(l.s_w, np.float32)), _t(np.asarray(l.b, np.float32)),
+                       float(qp.scales[f"{name}.relu{i + 1}"]), dtype)
+            layers.append(type(q)(*(t.to(device) for t in q)))
+        blocks[name] = tuple(layers)
+    fw = np.asarray(qp.final_w, np.float32)[0, 0]            # (C0, num_classes)
+    return QParams(blocks=blocks, final_w=_t(fw).to(device=device, dtype=dtype),
+                   final_b=_t(np.asarray(qp.final_b, np.float32)).to(device=device, dtype=dtype),
+                   scales={k: float(v) for k, v in qp.scales.items()}, dtype=dtype)

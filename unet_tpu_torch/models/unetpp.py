@@ -15,6 +15,7 @@ from typing import List, Union
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.func import functional_call
 
 from unet_tpu_torch.models.blocks import ConvBlock, max_pool2
 
@@ -24,7 +25,14 @@ NB_FILTER = (32, 64, 128, 256, 512)
 class NestedUNet(nn.Module):
     """Args mirror the reference constructor (src/models/unetpp.py:40-46).
     In eval mode the forward returns the (B, num_classes, H, W) logits; in
-    train mode with deep supervision, [out, ds1_3, ds2_2, ds3_1]."""
+    train mode with deep supervision, [out, ds1_3, ds2_2, ds3_1].
+
+    `dtype` is the compute type, as flax's `dtype` is
+    (unet_tpu/models/unetpp.py:44): the parameters stay float32, and a
+    forward in another type runs on copies of them cast to it, input
+    included. The BN-folded and int8 forwards (models/fast_forward.py,
+    models/quantized.py) read the float32 parameters and compute in
+    `dtype`."""
 
     def __init__(self, num_classes: int, input_channels: int = 3,
                  deep_supervision: bool = True, pretrained_encoder: bool = False,
@@ -49,9 +57,13 @@ class NestedUNet(nn.Module):
             self.ds3_1 = nn.Conv2d(f[3], num_classes, 1)
             self.ds2_2 = nn.Conv2d(f[2], num_classes, 1)
             self.ds1_3 = nn.Conv2d(f[1], num_classes, 1)
-        self.to(dtype)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> Union[torch.Tensor, List[torch.Tensor]]:
+        if self.final.weight.dtype != self.dtype:   # not yet inside the cast call
+            state = {k: v.to(self.dtype) if v.is_floating_point() else v
+                     for k, v in self.state_dict().items()}
+            return functional_call(self, state, (x.to(self.dtype),))
         up = lambda t: F.interpolate(t, scale_factor=2, mode="bilinear",
                                      align_corners=True)
         x0_0 = self.conv0_0(x)

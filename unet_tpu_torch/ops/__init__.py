@@ -6,4 +6,6 @@
   edges       canny / hysteresis
   cc          filter_components_by_geometry
   cc_kernels  propagate: the CUDA kernel for the CC/hysteresis fixpoint
+  nlm_kernels nlm: the CUDA kernel for non-local-means denoising
+  qconv_kernels qconv: the CUDA int8 3x3 conv with its requant fused
 """

@@ -1,7 +1,8 @@
 """Geometric and filtering image ops with OpenCV-matching semantics
-(counterpart of unet_tpu/ops/image.py:32-92, 163-168, 219-313, 325-355; the
-decoder's align-corners upsample, image.py:114-134, is F.interpolate in
-models/unetpp.py).
+(counterpart of unet_tpu/ops/image.py:32-92, 95-134, 163-168, 219-313,
+325-355). The fp32 NestedUNet's decoder upsamples with F.interpolate
+(models/unetpp.py); the bf16 and int8 forwards with
+`upsample2x_align_corners`.
 
 Conventions, as in the reference:
   * INTER_LINEAR uses half-pixel centers: src = (dst + 0.5) * scale - 0.5;
@@ -89,6 +90,49 @@ def resize_nearest(img: torch.Tensor, out_hw: Sequence[int],
                                                      img.shape[h_ax]), img.device))
     return x.index_select(h_ax + 1, _idx(_nearest_indices(
         int(out_hw[1]), img.shape[h_ax + 1]), img.device))
+
+
+def _upsample2x_taps(n: int):
+    """The two taps of each row of the JAX package's (2n, n) align-corners
+    x2 matrix (`_upsample2x_matrix`): row j holds 1-frac at column i0 and
+    frac at i1 for src = j*(n-1)/(2n-1); on the last row i0 == i1 and the
+    two add up to 1. Returns (i0, i1, w0, w1), w1 = 0 where i0 == i1."""
+    out = 2 * n
+    src = np.arange(out, dtype=np.float64) * (n - 1) / (out - 1)
+    i0 = np.floor(src).astype(np.int64)
+    frac = (src - i0).astype(np.float32)
+    i1 = np.minimum(i0 + 1, n - 1)
+    m = np.zeros((out, n), np.float32)
+    np.add.at(m, (np.arange(out), i0), 1.0 - frac)
+    np.add.at(m, (np.arange(out), i1), frac)
+    rows = np.arange(out)
+    return i0, i1, m[rows, i0], np.where(i1 > i0, m[rows, i1], np.float32(0))
+
+
+def upsample2x_align_corners(x: torch.Tensor, h_axis: int, w_axis: int) -> torch.Tensor:
+    """nn.Upsample(scale_factor=2, mode='bilinear', align_corners=True), as
+    the JAX package computes it (unet_tpu/ops/image.py:114-134): one axis at
+    a time, each output the two-term sum of `_upsample2x_matrix`'s row with
+    the weights cast to x.dtype, summed in float32 and rounded to x.dtype
+    after each axis. Computed as a gather-lerp, not a matrix product: the
+    row's other entries are exact zeros. In bf16 the products of bf16 values
+    and bf16 weights are exact in float32, so the result is bit-identical to
+    the JAX package's; F.interpolate in bf16 is not (it differs on 11-17 % of
+    int8 codes). In float32 it equals F.interpolate up to the last bit."""
+    def axis_up(t, axis):
+        n = t.shape[axis]
+        if n == 1:
+            return t.repeat_interleave(2, dim=axis)
+        i0, i1, w0, w1 = _upsample2x_taps(n)
+        shape = [1] * t.ndim
+        shape[axis] = 2 * n
+        w0, w1 = (torch.from_numpy(w).to(t.dtype).to(torch.float32)
+                  .reshape(shape).to(t.device) for w in (w0, w1))
+        a = t.index_select(axis, _idx(i0, t.device)).to(torch.float32)
+        b = t.index_select(axis, _idx(i1, t.device)).to(torch.float32)
+        return (a * w0 + b * w1).to(t.dtype)
+
+    return axis_up(axis_up(x, h_axis), w_axis)
 
 
 def rotate90_ccw(img: torch.Tensor, channel_dim: bool = None) -> torch.Tensor:

@@ -1,0 +1,135 @@
+"""int8 3x3 convolution with its requantization fused: the CUDA kernel and
+its plain version.
+
+Replaces, on the int8 forward (models/quantized.py), the JAX package's
+`_qconv` + `_requant` (unet_tpu/models/quantized.py:183-219), which XLA
+runs as lax.conv_general_dilated s8 x s8 -> s32 and an elementwise chain.
+Not a TPU kernel: PyTorch has no eager CUDA int8 convolution. The kernel is
+`csrc/qconv.cu` (its header says how it is built and bounded).
+
+Layouts, as in the JAX package but with the weights OHWI:
+  x     (B, H, W, C) int8 NHWC, or a pair (a, b) of such tensors that share
+        (B, H, W): the decoder's concat [a, b] along channels, never
+        materialised
+  wq    (N, 3, 3, C) int8, C = Ca + Cb for a pair
+  mult, bias  (N,) in the compute type (bf16, or float32)
+  out   (B, H, W, N) int8 = clip(round(acc.to(type) * mult + bias), 0, 127),
+        acc the int32 stride-1, zero-padded conv; each op rounds to the type
+        (PyTorch's and XLA's arithmetic), round half to even.
+
+The kernel and `qconv_plain` agree bit for bit: the accumulator is exact in
+both (the plain version sums in float64, exact for every |acc| <=
+127 * 127 * 9 * 768 < 2**53), and the epilogue rounds at the same places.
+
+`qconv` dispatches on the device of its input: a CPU tensor goes to
+`qconv_plain`, a CUDA tensor launches the kernel or raises. `launches`
+counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+from unet_tpu_torch import _build
+
+launches = 0
+
+Source = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
+_TYPES = (torch.bfloat16, torch.float32)
+
+
+def _check(x: Source, wq: torch.Tensor, mult: torch.Tensor, bias: torch.Tensor):
+    """The sources as a tuple, after checking shapes, types and devices."""
+    srcs = tuple(x) if isinstance(x, (tuple, list)) else (x,)
+    if len(srcs) not in (1, 2):
+        raise ValueError(f"x must be a tensor or a pair of tensors, got {len(srcs)}")
+    for s in srcs:
+        if s.dtype != torch.int8 or s.ndim != 4:
+            raise ValueError(f"x must be (B, H, W, C) int8, got {tuple(s.shape)} {s.dtype}")
+        if s.shape[:3] != srcs[0].shape[:3] or s.device != srcs[0].device:
+            raise ValueError("the two sources of a pair must share (B, H, W) and the device")
+    c = sum(s.shape[3] for s in srcs)
+    if wq.dtype != torch.int8 or wq.ndim != 4 or tuple(wq.shape[1:]) != (3, 3, c):
+        raise ValueError(f"wq must be (N, 3, 3, {c}) int8, got {tuple(wq.shape)} {wq.dtype}")
+    n = wq.shape[0]
+    for name, v in (("mult", mult), ("bias", bias)):
+        if v.dtype not in _TYPES or tuple(v.shape) != (n,):
+            raise ValueError(f"{name} must be ({n},) bf16 or float32, got "
+                             f"{tuple(v.shape)} {v.dtype}")
+    if mult.dtype != bias.dtype:
+        raise ValueError("mult and bias must share their type")
+    for v in (wq, mult, bias):
+        if v.device != srcs[0].device:
+            raise ValueError(f"every argument must be on the device of x, {srcs[0].device}; "
+                             f"got {v.device}")
+    return srcs
+
+
+def qconv(x: Source, wq: torch.Tensor, mult: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The fused int8 conv + requant; (B, H, W, N) int8."""
+    global launches
+    srcs = _check(x, wq, mult, bias)
+    dev = srcs[0].device
+    if dev.type == "cpu":
+        return qconv_plain(x, wq, mult, bias)
+    if dev.type != "cuda":
+        raise ValueError(f"qconv runs on cpu or cuda, not {dev}")
+    for v in srcs + (wq, mult, bias):
+        if not v.is_contiguous():
+            raise ValueError("qconv needs contiguous tensors")
+    B, H, W = srcs[0].shape[:3]
+    N = wq.shape[0]
+    a, b = srcs[0], (srcs[1] if len(srcs) == 2 else None)
+    ca, cb = a.shape[3], (b.shape[3] if b is not None else 0)
+    vec = (ca % 32 == 0 and cb % 32 == 0
+           and all(t.data_ptr() % 16 == 0 for t in (a, wq) + ((b,) if b is not None else ())))
+    lib = _build.load("qconv")
+    fn = lib.qconv_s8
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    out = torch.empty((B, H, W, N), dtype=torch.int8, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(a.data_ptr(), ca, b.data_ptr() if b is not None else None, cb,
+                 wq.data_ptr(), mult.data_ptr(), bias.data_ptr(),
+                 int(mult.dtype == torch.bfloat16), out.data_ptr(), B, H, W, N, int(vec),
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"qconv launch failed: CUDA error {err}")
+    launches += 1
+    return out
+
+
+def conv_acc_plain(x: Source, wq: torch.Tensor) -> torch.Tensor:
+    """The int32 accumulator of the stride-1, zero-padded 3x3 conv, on any
+    device: nine tap products as float64 matrix products (exact for these
+    integers in any summation order), summed in float64. (B, H, W, N) int32."""
+    srcs = tuple(x) if isinstance(x, (tuple, list)) else (x,)
+    x64 = torch.cat([s.to(torch.float64) for s in srcs], dim=-1)
+    B, H, W, _ = x64.shape
+    xp = F.pad(x64, (0, 0, 1, 1, 1, 1))
+    w64 = wq.to(torch.float64)
+    acc = torch.zeros((B, H, W, wq.shape[0]), dtype=torch.float64, device=x64.device)
+    for dy in range(3):
+        for dx in range(3):
+            acc += xp[:, dy:dy + H, dx:dx + W, :] @ w64[:, dy, dx, :].T
+    return acc.to(torch.int32)
+
+
+def requant_plain(acc: torch.Tensor, mult: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """int32 accumulator -> int8 codes of the next layer's scale: the
+    dequant, bias, ReLU and requant of unet_tpu/models/quantized.py
+    `_requant` (:207-219), each op rounding to the compute type."""
+    y = acc.to(mult.dtype) * mult + bias
+    return torch.clamp(torch.round(y), 0, 127).to(torch.int8)
+
+
+def qconv_plain(x: Source, wq: torch.Tensor, mult: torch.Tensor,
+                bias: torch.Tensor) -> torch.Tensor:
+    """`qconv` in plain PyTorch, on any device."""
+    _check(x, wq, mult, bias)
+    return requant_plain(conv_acc_plain(x, wq), mult, bias)

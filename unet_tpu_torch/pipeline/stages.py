@@ -1,14 +1,18 @@
 """The per-batch inspection step (counterpart of
 unet_tpu/pipeline/stages.py:62-72, 78-99, 113-179, 250-310, 339-364,
-490-611, 695-697).
+490-611, 695-697, 718-745).
 
 The port runs the branches the `two_stage` and `enhanced` presets take:
   1. uint8 BGR frames -> float32 (optional rotate / normalize)
   2. optional enhancement: CLAHE on Lab L, a denoiser (non-local means, the
      bilateral filter or none), sharpen
   3. BGR -> RGB, bilinear resize to the model size, / 255
-  4. model forward (fp32, cuDNN convs without TF32: `forward_logits`),
-     argmax, nearest resize back to the frame, ROI limit
+  4. model forward, argmax, nearest resize back to the frame, ROI limit.
+     The forward is the model's own (cuDNN convs without TF32 in fp32:
+     `forward_logits`), or, for a custom-encoder NestedUNet, the BN-folded
+     fast forward (`segment.fast_forward`) or the calibrated int8 forward
+     (`segment.int8_scales`, from `calibrate_int8`) in the model's compute
+     dtype (`segment_forward`)
   5. the `canny_band` or `multiscale` burr stage on a static crop around the
      ROI
   6. class map (0 bg / 1 cable / 2 tape / 3 burr) and pixel counts
@@ -19,13 +23,16 @@ the model sees NCHW.
 """
 from __future__ import annotations
 
-import threading
 from typing import Callable, NamedTuple, Union
 
 import numpy as np
 import torch
 import torch.nn as nn
 
+from unet_tpu_torch.models import NestedUNet
+from unet_tpu_torch.models import fast_forward as _ff
+from unet_tpu_torch.models import quantized as _q
+from unet_tpu_torch.models.blocks import fp32_convs
 from unet_tpu_torch.ops import cc as _cc
 from unet_tpu_torch.ops import clahe as _clahe
 from unet_tpu_torch.ops import color as _color
@@ -54,8 +61,6 @@ def _unsupported(cfg: PipelineCfg) -> None:
         (pp.dynamic_roi, "preprocess.dynamic_roi: ROADMAP A11"),
         (pp.letterbox, "preprocess.letterbox: ROADMAP A11"),
         (pp.normalization != "unit", "preprocess.normalization: ROADMAP A11"),
-        (bool(seg.int8_scales), "segment.int8_scales: ROADMAP A7 (int8)"),
-        (seg.fast_forward, "segment.fast_forward: ROADMAP A2 (bf16 route)"),
         (seg.threshold_mode != "argmax",
          f"threshold_mode {seg.threshold_mode!r}: ROADMAP A11"),
         (post.enabled or post.close_ksize > 0, "postprocess: ROADMAP A11"),
@@ -123,32 +128,47 @@ def model_input(frames_bgr: torch.Tensor, cfg: PipelineCfg) -> torch.Tensor:
     return x / 255.0
 
 
-# the cuDNN conv precision is process-wide: one forward sets and restores it
-# at a time, so that concurrent steps cannot leave it set
-_precision_lock = threading.Lock()
-
-
-def forward_logits(model: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """The fp32 model forward, (B, 3, h, w) -> (B, C, h, w) logits (the first
-    head where the model returns several), with cuDNN's convs in full fp32
-    whatever the process-wide setting, which is restored on return.
-    PyTorch's default runs fp32 convs in TF32 (10-bit mantissa), outside the
-    1e-3 logits gate the fp32 forward is held to
-    (tests/test_models_parity.py). Only the per-operator API is used: mixing
-    it with the legacy `allow_tf32` flag can raise. Forwards from several
-    threads run one at a time (their launches; the card's work stays
-    asynchronous)."""
-    conv = torch.backends.cudnn.conv
-    with _precision_lock:
-        old = conv.fp32_precision
-        conv.fp32_precision = "ieee"
-        try:
-            logits = model(x)
-        finally:
-            conv.fp32_precision = old
+def forward_logits(model: Callable[[torch.Tensor], torch.Tensor],
+                   x: torch.Tensor) -> torch.Tensor:
+    """The model forward, (B, 3, h, w) -> (B, C, h, w) logits (the first
+    head where the model returns several), with cuDNN's float32 convs in
+    full fp32 whatever the process-wide setting, which is restored on return
+    (`models.blocks.fp32_convs`): TF32 would put the fp32 forward outside the
+    1e-3 logits gate it is held to (tests/test_models_parity.py). Forwards
+    from several threads run one at a time (their launches; the card's work
+    stays asynchronous)."""
+    with fp32_convs():
+        logits = model(x)
     if isinstance(logits, (list, tuple)):
         logits = logits[0]
     return logits
+
+
+def segment_forward(model: nn.Module, cfg: PipelineCfg,
+                    device: Union[str, torch.device]) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The stage-1 forward on `device`: (B, h, w, 3) model input -> (B, C,
+    h, w) logits (unet_tpu/pipeline/stages.py:523-537). With
+    `segment.int8_scales` the calibrated int8 forward, else with
+    `segment.fast_forward` the BN-folded fast forward, both in the model's
+    compute dtype (`NestedUNet.dtype`) and both only for a custom-encoder
+    NestedUNet (ValueError otherwise); else the model itself.
+    The weights are prepared here, once, not on every batch. The model is
+    moved to `device` and put in eval mode."""
+    seg = cfg.segment
+    model = model.to(device).eval()
+    if not (seg.fast_forward or seg.int8_scales):
+        return lambda x: forward_logits(model, x.permute(0, 3, 1, 2).contiguous())
+    if not isinstance(model, NestedUNet):
+        raise ValueError("segment.fast_forward/int8_scales require a "
+                         "custom-encoder NestedUNet (models/fast_forward)")
+    sd = model.state_dict()
+    if seg.int8_scales:
+        qp = _q.prepare_int8_params(sd, seg.int8_scales, model.dtype, device)
+        fwd = lambda x: _q.nested_unet_forward_int8(qp, x)
+    else:
+        fp = _ff.prepare_fast_params(sd, model.dtype, device)
+        fwd = lambda x: _ff.nested_unet_forward_fast(fp, x)
+    return lambda x: forward_logits(fwd, x).permute(0, 3, 1, 2)
 
 
 def extract_masks(logits: torch.Tensor, cfg: PipelineCfg):
@@ -259,16 +279,16 @@ def _burr_on_roi_crop(gray: torch.Tensor, cable: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 @torch.inference_mode()
-def run_pipeline(model: nn.Module, frames_bgr: torch.Tensor,
+def run_pipeline(forward: Callable[[torch.Tensor], torch.Tensor], frames_bgr: torch.Tensor,
                  cfg: PipelineCfg) -> FrameOutputs:
     """The full step over one (B, H, W, 3) uint8 BGR batch, on the device of
-    `frames_bgr` (the model must sit on the same device)."""
+    `frames_bgr`. `forward` is the stage-1 forward on that device,
+    `segment_forward(model, cfg, device)`."""
     _unsupported(cfg)
     frames = preprocess_frames(frames_bgr, cfg)
     B, H, W = frames.shape[:3]
 
-    x = model_input(frames, cfg).permute(0, 3, 1, 2).contiguous()
-    cable_m, tape_m = extract_masks(forward_logits(model, x), cfg)
+    cable_m, tape_m = extract_masks(forward(model_input(frames, cfg)), cfg)
 
     cable = roi_limit(_image.resize_nearest(cable_m, (H, W), channel_dim=False),
                       cfg.roi, (H, W))
@@ -302,19 +322,49 @@ def run_pipeline(model: nn.Module, frames_bgr: torch.Tensor,
 def build_step(model: nn.Module, cfg: PipelineCfg, device: Union[str, torch.device] = "cuda"
                ) -> Callable[[Union[np.ndarray, torch.Tensor]], FrameOutputs]:
     """Returns step(frames_u8_bgr) -> FrameOutputs on `device`. The model is
-    moved to `device` and put in eval mode; frames may be a numpy array or a
-    tensor and are moved to `device`. There is no fallback: a `cuda` step
-    without a card raises. The forward runs in full fp32 whatever the
-    process-wide TF32 flags say, and leaves them as it found them
-    (`forward_logits`)."""
+    moved to `device` and put in eval mode, and the weights of the fast or
+    int8 forward are prepared once (`segment_forward`); frames may be a
+    numpy array or a tensor and are moved to `device`. There is no
+    fallback: a `cuda` step without a card raises. A float32 forward runs
+    with full-fp32 convs whatever the process-wide TF32 flags say, and
+    leaves them as it found them (`forward_logits`)."""
     _unsupported(cfg)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_step(device='cuda') needs a CUDA device")
-    model = model.to(device).eval()
+    forward = segment_forward(model, cfg, device)
 
     def step(frames_bgr) -> FrameOutputs:
         frames = torch.as_tensor(frames_bgr).to(device)
-        return run_pipeline(model, frames, cfg)
+        return run_pipeline(forward, frames, cfg)
 
     return step
+
+
+@torch.inference_mode()
+def calibrate_int8(model: nn.Module, cfg: PipelineCfg, frame_batches,
+                   device: Union[str, torch.device] = "cuda") -> PipelineCfg:
+    """Post-training int8 calibration on representative frames
+    (unet_tpu/pipeline/stages.py:718-731): the step's preprocessing, then a
+    float32 fast forward on `device` observing activation ranges. Returns
+    cfg with `segment.int8_scales` filled, so that `build_step` runs the int8
+    forward. `frame_batches`: (B, H, W, 3) uint8 BGR batches, numpy or
+    tensors."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("calibrate_int8(device='cuda') needs a CUDA device")
+    pre = (model_input(preprocess_frames(torch.as_tensor(b).to(device), cfg), cfg)
+           for b in frame_batches)
+    scales = _q.calibrate(model.state_dict(), pre)
+    return cfg.replace_in("segment", int8_scales=scales)
+
+
+def validate_int8(model: nn.Module, cfg: PipelineCfg, qcfg: PipelineCfg, frames,
+                  device: Union[str, torch.device] = "cuda") -> float:
+    """Class-map agreement between the float (`cfg`) and int8 (`qcfg`) steps
+    on held-out frames (unet_tpu/pipeline/stages.py:734-745), the online
+    proxy for the mIoU-delta gate; callers fall back to the float step below
+    about 0.995."""
+    ref = build_step(model, cfg, device)(frames)
+    out = build_step(model, qcfg, device)(frames)
+    return float((out.class_map == ref.class_map).float().mean())
