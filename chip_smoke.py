@@ -37,17 +37,20 @@ Phases; any failure exits non-zero and prints no result line:
   6. the bf16 and int8 forwards of `two_stage` with the same weights
      (`NestedUNet(dtype=bfloat16)`): `segment.fast_forward`, and the int8
      forward with scales from `stages.calibrate_int8` on the card; each
-     driven at b=8 (launch counts: int8 18 qconv + 2 cc_propagate, bf16 0 +
-     2) and b=32, with ms per batch, frames/s, the forward alone and its
+     driven at b=8 (launch counts: int8 18 qconv, 17 of them on the wgmma
+     kernel and conv0_0.conv1 on the mma.sync kernel, + 2 cc_propagate;
+     bf16 0 + 2) and b=32, with ms per batch, frames/s, the forward alone and its
      TFLOP/s or TOP/s, and a profile of one b=32 step; `validate_int8`
      against the bf16 model's plain step and the int8 and bf16 class maps
      against the fp32 step's; bf16 logits against fp32 on one 512^2 frame;
      the int8 forward on the card against the CPU's (plain versions) on one
      512^2 frame, every one of its 19 int8 tensors bit for bit. Then qconv
-     (`phase_qconv`) against its plain version bit for bit on ragged and
+     (`phase_qconv`) against its plain version bit for bit through both
+     kernels (the routed call and the mma.sync kernel forced) on ragged and
      small shapes, both forms and both compute types, and on every input
-     the int8 path gave it at b=8, each timed beside its bound, its plain
-     version and torch._int_mm over an im2col of the same conv
+     the int8 path gave it at b=8, each timed on both kernels in turns
+     beside its bound, its plain version and torch._int_mm over an im2col
+     of the same conv, with the sums over the wgmma route's 17 launches
 Then, on the last two lines, the kernels' JSON record and
 {"ok": true, "device": {...}}.
 
@@ -564,13 +567,16 @@ def _drive(step, frames, expect, what):
 
     torch.cuda.synchronize()
     cc_kernels.launches = cc_kernels.launches_cluster = cc_kernels.launches_global = 0
-    nlm_kernels.launches = qconv_kernels.launches = 0
+    nlm_kernels.launches = 0
+    qconv_kernels.launches = qconv_kernels.launches_wgmma = qconv_kernels.launches_sync = 0
     out = step(frames)
     torch.cuda.synchronize()
     got = {"cc_propagate": cc_kernels.launches,
            "cc_propagate_cluster": cc_kernels.launches_cluster,
            "cc_propagate_global": cc_kernels.launches_global,
-           "nlm": nlm_kernels.launches, "qconv": qconv_kernels.launches}
+           "nlm": nlm_kernels.launches, "qconv": qconv_kernels.launches,
+           "qconv_wgmma": qconv_kernels.launches_wgmma,
+           "qconv_sync": qconv_kernels.launches_sync}
     _log(f"main path ({what}): launches {got}")
     if got != expect:
         raise AssertionError(f"{what}: expected launches {expect}, got {got}")
@@ -630,7 +636,7 @@ def _profile_step(step, frames, step_ms: float, what: str) -> None:
     _log(f"profile ({what}, one b={frames.shape[0]} step): device busy {busy / 1e3:.3f} ms "
          f"of {step_ms:.3f} ms per step, idle share {max(0.0, 1 - busy / 1e3 / step_ms):.4f}")
     for name in ("nlm_kernel", "cc_propagate_cluster_kernel", "cc_propagate_global_kernel",
-                 "qconv_kernel"):
+                 "qconv_wgmma_kernel", "qconv_sync_kernel"):
         t = sum(dev(e) for e in evts if name in e.key)
         _log(f"  {name}: {t / 1e3:.3f} ms, {t / busy:.4f} of device busy time")
     for e in sorted(evts, key=dev, reverse=True)[:12]:
@@ -676,27 +682,31 @@ def _im2col_int8(x):
 
 
 def phase_qconv(recorded, device="cuda"):
-    """qconv against its plain version, bit for bit: every tile width, both
-    source paths, both forms and both compute types on small and ragged
-    shapes (the Cin = 3 layer among them), then every input the int8 path
-    gave it. At those inputs, each launch timed beside its bound, its plain
-    version and torch._int_mm over an im2col of the same conv (the library
-    yardstick; its accumulator, requantized by the plain epilogue, must give
-    the kernel's output). Returns (per-launch records, max abs error,
-    library ms summed over the launches or None)."""
+    """qconv against its plain version, bit for bit, through both kernels:
+    the routed call (`qconv`: wgmma for every source width a multiple of 32,
+    else the sync kernel's byte path) and the mma.sync kernel forced
+    (`qconv_sync`), on small and ragged shapes (every tile width of each,
+    both forms, both compute types, the Cin = 3 layer among them), then at
+    every input the int8 path gave it. At those inputs, each launch timed
+    on both kernels in turns (routed, sync, sync, routed) beside its bound,
+    its plain version and torch._int_mm over an im2col of the same conv
+    (the library yardstick; its accumulator, requantized by the plain
+    epilogue, must give the kernel's output). Returns ({route: per-launch
+    records of the launches the main path sends to it}, max abs error)."""
     from unet_tpu_torch.ops import qconv_kernels
 
     max_err, n = 0, 0
 
     def check(x, wq, mult, bias, what):
         nonlocal max_err, n
-        got = qconv_kernels.qconv(x, wq, mult, bias)
         want = qconv_kernels.qconv_plain(x, wq, mult, bias)
-        torch.cuda.synchronize()
-        err = int((got.int() - want.int()).abs().max()) if got.numel() else 0
-        max_err, n = max(max_err, err), n + 1
-        if err:
-            raise AssertionError(f"qconv != plain on {what}: max abs err {err}")
+        for name, fn in (("routed", qconv_kernels.qconv), ("sync", qconv_kernels.qconv_sync)):
+            got = fn(x, wq, mult, bias)
+            torch.cuda.synchronize()
+            err = int((got.int() - want.int()).abs().max()) if got.numel() else 0
+            max_err, n = max(max_err, err), n + 1
+            if err:
+                raise AssertionError(f"qconv ({name}) != plain on {what}: max abs err {err}")
 
     rng = np.random.default_rng(77)
     for dtype in (torch.bfloat16, torch.float32):
@@ -704,7 +714,9 @@ def phase_qconv(recorded, device="cuda"):
                 ((2, 32, 32), 3, 32, False, True), ((1, 7, 9), 5, 10, False, True),
                 ((2, 5, 3), 37, 33, True, False), ((1, 33, 65), 96, 32, True, False),
                 ((2, 16, 16), 192, 64, True, False), ((1, 8, 8), 768, 256, True, False),
-                ((3, 4, 4), 256, 512, False, False), ((1, 130, 3), 64, 128, False, False)):
+                ((3, 4, 4), 256, 512, False, False), ((1, 130, 3), 64, 128, False, False),
+                ((1, 9, 15), 32, 32, False, True), ((1, 23, 29), 32, 64, False, True),
+                ((1, 13, 11), 768, 256, True, True), ((1, 6, 10), 768, 512, True, False)):
             cuts = (cin // 3, cin - cin // 3) if pair else (cin,)
             lo = -127 if signed else 0
             xs = tuple(torch.from_numpy(rng.integers(lo, 128, shape + (c,)).astype(np.int8)).to(device)
@@ -716,12 +728,21 @@ def phase_qconv(recorded, device="cuda"):
             check(xs if pair else xs[0], wq, mult, bias, f"{shape} Cin {cin} Cout {cout} "
                   f"{'pair' if pair else 'single'} {dtype}")
 
-    per_launch, lib_total = [], 0.0
+    per_route = {"wgmma": [], "sync": []}
     for site, (x, wq, mult, bias) in recorded.items():
         check(x, wq, mult, bias, f"main-path {site}")
         srcs = x if isinstance(x, tuple) else (x,)
         shape = [list(t.shape) for t in srcs]
-        ms = _time_ms(lambda: qconv_kernels.qconv(x, wq, mult, bias), reps=10)
+        aligned = all(t.data_ptr() % 16 == 0 for t in srcs + (wq,))
+        kind, bn = qconv_kernels.route(srcs[0].shape[-1], sum(t.shape[-1] for t in srcs[1:]),
+                                       wq.shape[0], aligned)
+        routed = lambda: qconv_kernels.qconv(x, wq, mult, bias)
+        sync = lambda: qconv_kernels.qconv_sync(x, wq, mult, bias)
+        ms_a = _time_ms(routed, reps=10)
+        sync_a = _time_ms(sync, reps=10)
+        sync_b = _time_ms(sync, reps=10)
+        ms_b = _time_ms(routed, reps=10)
+        ms, sync_ms = (ms_a + ms_b) / 2, (sync_a + sync_b) / 2
         plain_ms = _time_ms(lambda: qconv_kernels.qconv_plain(x, wq, mult, bias), reps=2)
         bound, bound_by = _qconv_bound_ms(x, wq, mult)
         B, H, W = srcs[0].shape[:3]
@@ -730,20 +751,27 @@ def phase_qconv(recorded, device="cuda"):
         wmat = nn.functional.pad(wq.reshape(N, -1), (0, cols.shape[1] - wq[0].numel()))
         lib = lambda: torch._int_mm(cols, wmat.t())
         acc = lib().reshape(B, H, W, N)
-        if not torch.equal(qconv_kernels.requant_plain(acc, mult, bias),
-                           qconv_kernels.qconv(x, wq, mult, bias)):
+        if not torch.equal(qconv_kernels.requant_plain(acc, mult, bias), routed()):
             raise AssertionError(f"torch._int_mm's accumulator disagrees with qconv at {site}")
         library_ms = _time_ms(lib, reps=10)
-        lib_total += library_ms
         ops = 2 * B * H * W * N * 9 * wq.shape[-1]
-        per_launch.append(dict(site=site, shape=shape, cout=N, ms=ms, plain_ms=plain_ms,
-                               bound_ms=bound, bound_by=bound_by, library_ms=library_ms,
-                               tops=ops / ms / 1e9))
-        _log(f"kernel qconv {site} {shape} -> {N}: {ms:.4f} ms/launch "
-             f"({ops / ms / 1e9:.1f} TOP/s), plain {plain_ms:.4f} ms, bound {bound:.5f} ms "
-             f"({bound_by}), torch._int_mm over an im2col {library_ms:.4f} ms")
+        per_route[kind].append(dict(
+            site=site, shape=shape, cout=N, route=kind, bn=bn, ms=ms, ms_runs=[ms_a, ms_b],
+            sync_ms=sync_ms, sync_ms_runs=[sync_a, sync_b], plain_ms=plain_ms, bound_ms=bound,
+            bound_by=bound_by, library_ms=library_ms, tops=ops / ms / 1e9))
+        _log(f"kernel qconv {site} {shape} -> {N}: {kind} BN {bn} {ms:.4f} ms/launch "
+             f"({ops / ms / 1e9:.1f} TOP/s; runs {ms_a:.4f}, {ms_b:.4f}), mma.sync kernel "
+             f"{sync_ms:.4f} ms ({sync_a:.4f}, {sync_b:.4f}), plain {plain_ms:.4f} ms, bound "
+             f"{bound:.5f} ms ({bound_by}), torch._int_mm over an im2col {library_ms:.4f} ms")
+    vec = per_route["wgmma"]
+    if vec:
+        tot = {k: sum(p[k] for p in vec) for k in ("ms", "sync_ms", "library_ms", "bound_ms")}
+        _log(f"qconv sum over the {len(vec)} wgmma-route launches of one b=8 batch: wgmma "
+             f"{tot['ms']:.4f} ms, mma.sync kernel {tot['sync_ms']:.4f} ms "
+             f"({tot['sync_ms'] / tot['ms']:.2f}x), torch._int_mm {tot['library_ms']:.4f} ms, "
+             f"bound {tot['bound_ms']:.5f} ms")
     _log(f"kernels: qconv, {n} comparisons with the plain version, all bit-identical")
-    return per_launch, max_err, lib_total
+    return per_route, max_err
 
 
 def phase_low_precision(cfg, expect, counts, gflop, card, H, W, device="cuda"):
@@ -867,9 +895,11 @@ def main() -> int:
     cfgs = {"two_stage": presets.two_stage(), "enhanced": presets.enhanced()}
     # every B1 launch of both paths takes the cluster route
     b1 = {"cc_propagate": 2, "cc_propagate_cluster": 2, "cc_propagate_global": 0}
-    expect = {"two_stage": dict(b1, nlm=0, qconv=0), "enhanced": dict(b1, nlm=3, qconv=0),
-              "two_stage_bf16": dict(b1, nlm=0, qconv=0),
-              "two_stage_int8": dict(b1, nlm=0, qconv=18)}
+    # int8: 17 convs on qconv's wgmma route, conv0_0.conv1 (Cin 3) on the sync kernel
+    q0 = {"qconv": 0, "qconv_wgmma": 0, "qconv_sync": 0}
+    expect = {"two_stage": dict(b1, nlm=0, **q0), "enhanced": dict(b1, nlm=3, **q0),
+              "two_stage_bf16": dict(b1, nlm=0, **q0),
+              "two_stage_int8": dict(b1, nlm=0, qconv=18, qconv_wgmma=17, qconv_sync=1)}
     scenes = {"two_stage": lambda b, seed: synthetic_frames(b, H, W, seed=seed),
               "enhanced": lambda b, seed: enhanced_scenes(b, H, W, seed=seed)}
 
@@ -960,7 +990,7 @@ def main() -> int:
     low, q_rec, int8_checks = phase_low_precision(cfgs["two_stage"], expect, counts, gflop,
                                                   card, H, W)
     timings.update(low)
-    q_launch, q_err, q_lib = phase_qconv(q_rec)
+    q_launch, q_err = phase_qconv(q_rec)
 
     def entry(name, source, replaces, per_launch, max_err, by_path, library_ms=None,
               **extra):
@@ -983,11 +1013,17 @@ def main() -> int:
               trace=cc_trace, trace_global_by_batch=cc_batches),
         entry("nlm", "unet_tpu_torch/csrc/nlm.cu", "unet_tpu/ops/nlm_pallas.py:96",
               nlm_launch, nlm_err, {p: c["nlm"] for p, c in counts.items() if c["nlm"]}),
-        entry("qconv", "unet_tpu_torch/csrc/qconv.cu", "unet_tpu/models/quantized.py:183",
-              q_launch, q_err, {p: c["qconv"] for p, c in counts.items() if c["qconv"]},
-              library_ms=q_lib, library="torch._int_mm over an im2col (the conv's int32 "
-              "accumulator only)", tpu_kernel=False,
-              note="not a TPU kernel: the JAX package's _qconv + _requant run as XLA ops"),
+    ] + [
+        entry(f"qconv_{r}", "unet_tpu_torch/csrc/qconv.cu", "unet_tpu/models/quantized.py:183",
+              q_launch[r], q_err,
+              {p: c[f"qconv_{r}"] for p, c in counts.items() if c[f"qconv_{r}"]},
+              library_ms=sum(p["library_ms"] for p in q_launch[r]),
+              library="torch._int_mm over an im2col (the conv's int32 accumulator only)",
+              tpu_kernel=False, sync_ms=sum(p["sync_ms"] for p in q_launch[r]),
+              note="not a TPU kernel: the JAX package's _qconv + _requant run as XLA ops; "
+                   + ("the wgmma kernel, every source width a multiple of 32" if r == "wgmma"
+                      else "the mma.sync kernel, the byte path of Cin = 3"))
+        for r in ("wgmma", "sync")
     ], "slice_ms_per_batch": timings, "int8_checks": int8_checks, "card": card,
         "seconds": round(time.time() - t_start, 1)}
     print(json.dumps(record))

@@ -209,6 +209,16 @@ def _to(x, dev):
     return tuple(t.to(dev) for t in x) if isinstance(x, tuple) else x.to(dev)
 
 
+def _launch_counts():
+    return (qconv_kernels.launches, qconv_kernels.launches_wgmma, qconv_kernels.launches_sync)
+
+
+def _expect_route(x, n):
+    srcs = x if isinstance(x, tuple) else (x,)
+    ca, cb = srcs[0].shape[-1], (srcs[1].shape[-1] if len(srcs) == 2 else 0)
+    return qconv_kernels.route(ca, cb, n, aligned=True)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape,cin,n,pair,signed", [
@@ -221,24 +231,74 @@ def _to(x, dev):
     ((1, 8, 8), 768, 256, True, False),      # conv3_1.conv1
     ((3, 4, 4), 256, 512, False, False),     # conv4_0.conv1
     ((1, 130, 3), 64, 128, False, False),    # 128-pixel tiles cut across rows
+    # the wgmma route: M not a multiple of 128, K tails (9 C not a multiple
+    # of 128), signed codes, N = 32 ... 512 at each tile width
+    ((1, 9, 15), 32, 32, False, True),       # BN 32, K = 288, one partial tile
+    ((2, 17, 19), 96, 32, True, True),       # BN 32, a 32 + 64 pair, K = 864
+    ((1, 23, 29), 32, 64, False, True),      # BN 64
+    ((2, 11, 13), 96, 64, True, False),      # BN 64, pair
+    ((1, 21, 22), 64, 128, False, True),     # BN 128
+    ((1, 13, 11), 768, 256, True, True),     # BN 128, a 256 + 512 pair, two N tiles
+    ((2, 5, 7), 256, 512, False, True),      # BN 128, four N tiles
+    ((1, 6, 10), 768, 512, True, False),     # K = 6912, 54 slices
 ])
 def test_qconv_matches_plain(card, dtype, shape, cin, n, pair, signed):
     """The kernel bit for bit against `qconv_plain`, single and pair forms,
-    every tile width (N % 128, % 64, else 32), both source paths (16-byte
-    copies when every source's channel count is a multiple of 32, bytes
-    otherwise) and both compute types."""
+    both routes (wgmma for every source width a multiple of 32, mma.sync's
+    byte path otherwise), every tile width of each (N % 128, % 64, else 32)
+    and both compute types; each launch counted on the route `route`
+    names."""
     x, wq, mult, bias = _qconv_case(shape, cin, n, pair, signed, dtype)
     if pair:
         assert (x[0].shape[-1] % 32 == 0) == (cin % 96 == 0)
     xd, wd, md, bd = _to(x, card), wq.to(card), mult.to(card), bias.to(card)
-    before = qconv_kernels.launches
+    kind, _ = _expect_route(x, n)
+    before = _launch_counts()
     got = qconv_kernels.qconv(xd, wd, md, bd)
     torch.cuda.synchronize()
-    assert qconv_kernels.launches == before + 1
+    after = _launch_counts()
+    assert after[0] == before[0] + 1
+    assert (after[1] - before[1], after[2] - before[2]) == ((1, 0) if kind == "wgmma" else (0, 1))
     want = qconv_kernels.qconv_plain(xd, wd, md, bd)
     assert got.shape == shape + (n,) and got.dtype == torch.int8
     assert torch.equal(got, want)
     assert 0 < int(got.float().mean()) and int(got.max()) == 127  # the epilogue's range is used
+    assert torch.equal(got.cpu(), qconv_kernels.qconv_plain(x, wq, mult, bias))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,cin,n,pair", [
+    ((1, 9, 15), 32, 32, False), ((2, 11, 13), 96, 64, True), ((1, 13, 11), 768, 256, True),
+    ((1, 130, 3), 64, 128, False)])
+def test_qconv_sync_route_matches_plain_at_wgmma_shapes(card, dtype, shape, cin, n, pair):
+    """`qconv_sync`, the mma.sync kernel kept as the wgmma route's yardstick, at
+    shapes the main path sends to wgmma: bit for bit, counted as sync."""
+    x, wq, mult, bias = _qconv_case(shape, cin, n, pair, True, dtype, seed=5)
+    xd, wd, md, bd = _to(x, card), wq.to(card), mult.to(card), bias.to(card)
+    assert _expect_route(x, n)[0] == "wgmma"
+    before = _launch_counts()
+    got = qconv_kernels.qconv_sync(xd, wd, md, bd)
+    torch.cuda.synchronize()
+    after = _launch_counts()
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 0, 1)
+    assert torch.equal(got, qconv_kernels.qconv(xd, wd, md, bd))
+    assert torch.equal(got, qconv_kernels.qconv_plain(xd, wd, md, bd))
+
+
+@pytest.mark.cuda
+def test_qconv_misaligned_source_takes_the_sync_route(card):
+    """A source that is not 16-byte aligned (a view one byte into its
+    storage) goes to the sync kernel's byte path, by the route alone."""
+    x, wq, mult, bias = _qconv_case((1, 12, 12), 32, 32, False, False, torch.bfloat16)
+    flat = torch.empty(x.numel() + 1, dtype=torch.int8, device=card)
+    xd = flat[1:].view(x.shape)
+    xd.copy_(x.to(card))
+    assert xd.data_ptr() % 16 != 0 and xd.is_contiguous()
+    before = _launch_counts()
+    got = qconv_kernels.qconv(xd, wq.to(card), mult.to(card), bias.to(card))
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_launch_counts(), before)) == (1, 0, 1)
     assert torch.equal(got.cpu(), qconv_kernels.qconv_plain(x, wq, mult, bias))
 
 
@@ -269,12 +329,13 @@ def test_int8_forward_on_the_card_equals_the_cpu(card):
     qp_cpu = quantized.prepare_int8_params(model.state_dict(), scales)
     qp_card = quantized.prepare_int8_params(model.state_dict(), scales, device=card)
     taps_cpu, taps_card = {}, {}
-    before = qconv_kernels.launches
+    before = _launch_counts()
     with torch.inference_mode():
         want = quantized.nested_unet_forward_int8(qp_cpu, x, taps_cpu)
         got = quantized.nested_unet_forward_int8(qp_card, x.to(card), taps_card)
     torch.cuda.synchronize()
-    assert qconv_kernels.launches == before + 18
+    # 17 convs on the wgmma route, conv0_0.conv1 (Cin 3) on the sync kernel
+    assert tuple(a - b for a, b in zip(_launch_counts(), before)) == (18, 17, 1)
     assert sorted(taps_card) == sorted(quantized.TAP_NAMES)
     for name in quantized.TAP_NAMES:
         assert torch.equal(taps_card[name].cpu(), taps_cpu[name]), name
@@ -296,10 +357,11 @@ def test_bf16_and_int8_steps_on_the_card(card, route):
         assert len(cfg.segment.int8_scales) == 19
     else:
         cfg = cfg.replace_in("segment", fast_forward=True)
-    before = qconv_kernels.launches
+    before = _launch_counts()
     got = stages.build_step(model, cfg, device=card)(frames)
     torch.cuda.synchronize()
-    assert qconv_kernels.launches - before == (18 if route == "int8" else 0)
+    assert (tuple(a - b for a, b in zip(_launch_counts(), before))
+            == ((18, 17, 1) if route == "int8" else (0, 0, 0)))
     want = stages.build_step(model, cfg, device="cpu")(frames)
     agree = float((got.class_map.cpu() == want.class_map).float().mean())
     assert agree >= 0.995, agree

@@ -255,7 +255,7 @@ def test_chip_smoke_low_precision_phases_run_on_the_cpu(monkeypatch):
     monkeypatch.setattr(cs, "_time_step", lambda step, frames, reps=1: host_ms(lambda: step(frames)))
     monkeypatch.setattr(cs, "_profile_step", lambda *a, **k: None)
     zero = {"cc_propagate": 0, "cc_propagate_cluster": 0, "cc_propagate_global": 0,
-            "nlm": 0, "qconv": 0}
+            "nlm": 0, "qconv": 0, "qconv_wgmma": 0, "qconv_sync": 0}
     expect = {"two_stage_bf16": zero, "two_stage_int8": zero}
     counts = {}
     cfg = presets.two_stage().replace_in("preprocess", model_size=(32, 32))
@@ -264,8 +264,11 @@ def test_chip_smoke_low_precision_phases_run_on_the_cpu(monkeypatch):
     assert set(timings) == set(counts) == {"two_stage_bf16", "two_stage_int8"}
     assert checks["int8_taps_bit_identical_card_vs_cpu"] == 19
     assert len(q_rec) == 18
-    per_launch, max_err, library_ms = cs.phase_qconv(q_rec, device="cpu")
-    assert len(per_launch) == 18 and max_err == 0 and library_ms > 0
+    per_route, max_err = cs.phase_qconv(q_rec, device="cpu")
+    assert max_err == 0
+    assert {r: len(v) for r, v in per_route.items()} == {"wgmma": 17, "sync": 1}
+    assert per_route["sync"][0]["site"] == "two_stage_int8/conv0_0.conv1"
+    assert all(p["library_ms"] > 0 and p["sync_ms"] > 0 for v in per_route.values() for p in v)
 
 
 def test_build_step_cuda_without_card_raises():

@@ -244,3 +244,74 @@ def test_two_stage_int8_step_matches_jax():
         np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(getattr(want, name)),
                                    atol=0.005 * 224 * 400)
     assert stages.validate_int8(tm, cfg, qcfg, frames, device="cpu") > 0.995
+
+
+# The int8 forward's 18 convs: (Ca, Cb, N) of each (Cb > 0 for a decoder
+# pair) and the route `qconv_kernels.route` gives it on the card.
+MAIN_PATH_CONVS = {
+    "conv0_0.conv1": ((3, 0, 32), ("sync", 32)),
+    "conv0_0.conv2": ((32, 0, 32), ("wgmma", 32)),
+    "conv1_0.conv1": ((32, 0, 64), ("wgmma", 64)),
+    "conv1_0.conv2": ((64, 0, 64), ("wgmma", 64)),
+    "conv2_0.conv1": ((64, 0, 128), ("wgmma", 128)),
+    "conv2_0.conv2": ((128, 0, 128), ("wgmma", 128)),
+    "conv3_0.conv1": ((128, 0, 256), ("wgmma", 128)),
+    "conv3_0.conv2": ((256, 0, 256), ("wgmma", 128)),
+    "conv4_0.conv1": ((256, 0, 512), ("wgmma", 128)),
+    "conv4_0.conv2": ((512, 0, 512), ("wgmma", 128)),
+    "conv3_1.conv1": ((256, 512, 256), ("wgmma", 128)),
+    "conv3_1.conv2": ((256, 0, 256), ("wgmma", 128)),
+    "conv2_2.conv1": ((128, 256, 128), ("wgmma", 128)),
+    "conv2_2.conv2": ((128, 0, 128), ("wgmma", 128)),
+    "conv1_3.conv1": ((64, 128, 64), ("wgmma", 64)),
+    "conv1_3.conv2": ((64, 0, 64), ("wgmma", 64)),
+    "conv0_4.conv1": ((32, 64, 32), ("wgmma", 32)),
+    "conv0_4.conv2": ((32, 0, 32), ("wgmma", 32)),
+}
+
+
+@pytest.mark.parametrize("site", sorted(MAIN_PATH_CONVS))
+def test_qconv_route_of_each_main_path_conv(site):
+    """17 convs take the wgmma kernel at BN = min(N, 128), conv0_0.conv1
+    (Cin 3) the sync kernel; a misaligned buffer sends any of them to the
+    sync kernel, never to a plain version."""
+    (ca, cb, n), want = MAIN_PATH_CONVS[site]
+    assert qconv_kernels.route(ca, cb, n, aligned=True) == want
+    assert qconv_kernels.route(ca, cb, n, aligned=False) == ("sync", want[1])
+    if want[0] == "wgmma":
+        assert want[1] == min(n, 128)
+
+
+@pytest.mark.parametrize("ca,cb,n,want", [
+    (3, 0, 32, ("sync", 32)), (5, 0, 10, ("sync", 32)), (12, 25, 33, ("sync", 32)),
+    (48, 0, 64, ("sync", 64)), (32, 16, 128, ("sync", 128)), (16, 32, 32, ("sync", 32)),
+    (32, 0, 48, ("sync", 32)), (64, 0, 40, ("sync", 32)), (64, 0, 8, ("sync", 32)),
+    (32, 0, 96, ("wgmma", 32)), (96, 0, 192, ("wgmma", 64)), (768, 0, 384, ("wgmma", 128)),
+    (32, 64, 1024, ("wgmma", 128))])
+def test_qconv_route_of_ragged_and_misaligned_shapes(ca, cb, n, want):
+    """A channel count or an N that is not a multiple of 32 takes the sync
+    kernel (with its tile rule: 128, 64, else 32); every route is a kernel."""
+    assert qconv_kernels.route(ca, cb, n, aligned=True) == want
+    assert qconv_kernels.route(ca, cb, n, aligned=False)[0] == "sync"
+
+
+def test_main_path_conv_shapes_are_the_routed_table(shared, monkeypatch):
+    """The int8 forward's 18 qconv calls, in order, have the (Ca, Cb, N) of
+    MAIN_PATH_CONVS: the table the route test holds is the model's."""
+    _, sd, x, _ = shared
+    xt = torch.from_numpy(x[:1, :32, :32])
+    seen = []
+    real = qconv_kernels.qconv
+
+    def spy(t, wq, mult, bias):
+        srcs = t if isinstance(t, tuple) else (t,)
+        seen.append((srcs[0].shape[-1], srcs[1].shape[-1] if len(srcs) == 2 else 0, wq.shape[0]))
+        return real(t, wq, mult, bias)
+
+    qp = tq.prepare_int8_params(sd, tq.calibrate(sd, [xt]))
+    monkeypatch.setattr(qconv_kernels, "qconv", spy)
+    with torch.inference_mode():
+        tq.nested_unet_forward_int8(qp, xt)
+    names = [f"{b}.conv{i}" for b in tq.BLOCK_NAMES for i in (1, 2)]
+    assert dict(zip(names, seen)) == {k: v[0] for k, v in MAIN_PATH_CONVS.items()}
+    assert len(seen) == 18

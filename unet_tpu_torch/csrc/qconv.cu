@@ -27,29 +27,66 @@
 //
 // Bound on the H100 (chip_smoke.py `_qconv_bound_ms`): the 2 M N 9 C int8
 // operations at 1,979 TOP/s, or the bytes (each input read once, the
-// weights once, the output written once) at 3.35 TB/s. The decoder's
-// full-resolution layers (N = 32, M = B * 512^2) are bound by bytes, the
-// deep ones by operations.
+// weights once, the output written once) at 3.35 TB/s. The 512^2 layers
+// with N = 32 (M = B * 512^2) are bound by bytes: 9 C input bytes per pixel
+// give only 2 * 32 * 9 C operations, and the tile re-reads every input
+// pixel once per tap through L2, which no tile of this design avoids. The
+// layers at 128^2 and below are bound by operations (K = 9 C up to 6912,
+// N up to 512), and the 256^2 ones sit near the line.
 //
-// Design (the simple first kernel; wgmma and TMA are later work): implicit
-// GEMM, M = output pixels, N = output channels, K = 9 C, never an im2col.
-// A block of 8 warps computes a 128 x BN tile (BN = 32, 64 or 128, the
-// largest that divides N) with mma.sync m16n8k32 s8 -> s32; a warp owns 32
-// rows x BN/2 columns. The K loop walks 32-value slices through a
-// 3-stage cp.async ring in shared memory; rows are padded to 48 bytes so
-// that the 32-bit fragment loads of a warp hit 32 distinct banks. When
-// every source's channel count is a multiple of 32 (all layers but the
-// first), a slice lies in one tap and one source, and a thread fetches its
-// pixel's 16 bytes with one cp.async, zero-filled outside the plane (the
-// conv's padding). Otherwise (Cin = 3 of conv0_0.conv1, ragged test shapes)
-// a slice is gathered byte by byte, and the weights' tail is zero. The
-// epilogue requantizes the accumulators in registers and stores int8.
+// Design: implicit GEMM, M = output pixels, N = output channels, K = 9 C
+// ordered (tap, c), never an im2col. Two routes, picked by the wrapper
+// from the shapes and the alignment alone (`qconv_kernels.route`):
+//
+// * wgmma (every source's channel count a multiple of 32, the buffers
+//   16-byte aligned: 17 of the 18 convs of the int8 forward). A block of
+//   two warpgroups computes a 128 x BN tile (BN = 128, 64 or 32, the
+//   largest that divides N) with wgmma.mma_async m64nBNk32 s8 x s8 -> s32,
+//   A and B both read from shared memory by descriptor, so the tensor cores
+//   take whole 64 x BN x 32 steps and no thread loads a fragment. The K
+//   loop walks 128-byte slices (4 wgmma k32 steps) through a 4-stage ring
+//   in dynamic shared memory, 128-byte swizzled (16-byte chunk j of row r
+//   at chunk j ^ (r & 7), 8-row atoms of 1 KiB), so neither the copies in
+//   nor the tensor cores' reads conflict on banks. Every thread fills its
+//   chunks with 16-byte cp.async copies; a chunk's k = 128 kt + 16 j names
+//   one tap and one source (C % 32 == 0), and the copy is zero-filled for
+//   the conv's padding, for pixels past M and for the K tail past 9 C.
+//   Loads run two slices ahead while one wgmma group is in flight. The
+//   epilogue requantizes the accumulators in registers, writes the int8
+//   tile into the idle ring and stores it in coalesced 16-byte rows.
+// * mma.sync (the first kernel; the byte path of conv0_0.conv1, Cin = 3, and
+//   of ragged shapes): 8 warps of mma.sync m16n8k32 on a 3-stage ring of
+//   32-byte slices with rows padded to 48 bytes; a slice is gathered byte
+//   by byte over (tap, c) when a channel count is not a multiple of 32;
+//   2-byte stores straight to device memory. `qconv_s8_sync` reaches it
+//   at any shape, so that it can be timed beside the wgmma route.
+//
+// Three traps of the wgmma route, and what the kernel does about each:
+// 1. cp.async writes shared memory through the generic proxy and wgmma
+//    reads it through the async proxy: after cp.async.wait_group each
+//    thread runs fence.proxy.async.shared::cta before the barrier that
+//    hands the stage to wgmma. Without it a stale tile is read only now and
+//    then, so a small test can pass and a large one fail.
+// 2. A stage is refilled only after the wgmma group that reads it has
+//    retired: with one group in flight, wgmma.wait_group 1 at the end of
+//    slice kt retires group kt - 1, and the next slice's barrier precedes
+//    the refill of stage (kt - 1) % 4. wgmma.fence precedes the wgmmas
+//    that touch the accumulator registers, and empty asm statements keep
+//    nvcc from moving the accumulators across the async instructions.
+// 3. For .s8, wgmma takes A and B only K-major. Both are: A is (pixel,
+//    tap C + c) from NHWC sources, B the OHWI weights flattened to (N, 9 C).
+//    The 16-byte copies need every source and the weights 16-byte aligned.
+//
+// TMA, a persistent grid, warp specialisation and BN 256 are later work
+// (ROADMAP B3).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// -- the mma.sync route (the first kernel): the byte path, and any shape
 
 constexpr int kBM = 128;       // output pixels of a block
 constexpr int kBK = 32;        // K slice: one mma.sync k32 step
@@ -127,7 +164,7 @@ __device__ __forceinline__ uint32_t gather_byte(const Src& xa, const Src& xb, in
 
 template <int BN, bool kVec, bool kBf16>
 __global__ void __launch_bounds__(kThreads)
-    qconv_kernel(Src xa, Src xb, const int8_t* __restrict__ w, const void* mult,
+    qconv_sync_kernel(Src xa, Src xb, const int8_t* __restrict__ w, const void* mult,
                  const void* bias, int8_t* __restrict__ out, int B, int H, int W, int N) {
   constexpr int kWN = BN / 2;   // columns of a warp
   constexpr int kNI = kWN / 8;  // n8 tiles of a warp
@@ -288,16 +325,16 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int BN, bool kVec>
-cudaError_t launch(bool bf16, Src xa, Src xb, const int8_t* w, const void* mult,
+cudaError_t launch_sync(bool bf16, Src xa, Src xb, const int8_t* w, const void* mult,
                    const void* bias, int8_t* out, int B, int H, int W, int N,
                    cudaStream_t stream) {
   const long M = static_cast<long>(B) * H * W;
   const dim3 grid(static_cast<unsigned>((M + kBM - 1) / kBM), (N + BN - 1) / BN);
   if (bf16)
-    qconv_kernel<BN, kVec, true><<<grid, kThreads, 0, stream>>>(xa, xb, w, mult, bias, out,
+    qconv_sync_kernel<BN, kVec, true><<<grid, kThreads, 0, stream>>>(xa, xb, w, mult, bias, out,
                                                                 B, H, W, N);
   else
-    qconv_kernel<BN, kVec, false><<<grid, kThreads, 0, stream>>>(xa, xb, w, mult, bias, out,
+    qconv_sync_kernel<BN, kVec, false><<<grid, kThreads, 0, stream>>>(xa, xb, w, mult, bias, out,
                                                                  B, H, W, N);
   return cudaGetLastError();
 }
@@ -306,30 +343,316 @@ template <int BN>
 cudaError_t launch_bn(bool vec, bool bf16, Src xa, Src xb, const int8_t* w, const void* mult,
                       const void* bias, int8_t* out, int B, int H, int W, int N,
                       cudaStream_t stream) {
-  return vec ? launch<BN, true>(bf16, xa, xb, w, mult, bias, out, B, H, W, N, stream)
-             : launch<BN, false>(bf16, xa, xb, w, mult, bias, out, B, H, W, N, stream);
+  return vec ? launch_sync<BN, true>(bf16, xa, xb, w, mult, bias, out, B, H, W, N, stream)
+             : launch_sync<BN, false>(bf16, xa, xb, w, mult, bias, out, B, H, W, N, stream);
 }
+
+// -- the wgmma route: every source's channel count a multiple of 32
+
+namespace wg {
+
+constexpr int kBM = 128;      // output pixels of a block: 2 warpgroups x 64 rows
+constexpr int kBK = 128;      // K bytes of a stage: 4 wgmma k32 steps, one 128-byte row
+constexpr int kStages = 4;    // ring depth; loads run kStages - 2 slices ahead
+constexpr int kThreads = 256;
+
+template <int BN>
+struct Tile {
+  static constexpr int kA = kBM * kBK;          // bytes of a stage's A tile (then B)
+  static constexpr int kStage = kA + BN * kBK;
+  static constexpr int kPitch = BN + 16;        // epilogue tile row, 16-byte aligned
+  static constexpr int kSmem = kStages * kStage + 1024;  // + room to align the ring to 1 KiB
+  static_assert(kBM * kPitch <= kStages * kStage, "the epilogue tile reuses the ring");
+};
+
+// byte offset of 16-byte chunk j of row r in a 128-byte-swizzled tile: 8-row
+// atoms of 1 KiB, chunk j of row r stored at chunk j ^ (r & 7) (the hardware's
+// Swizzle<3,4,3> on address bits [4,7) ^ [7,10), so the ring is 1 KiB aligned)
+__device__ __forceinline__ uint32_t swz(int r, int j) {
+  return static_cast<uint32_t>(r * kBK + ((j ^ (r & 7)) << 4));
+}
+
+// wgmma shared-memory descriptor of a K-major operand in that layout: start
+// address >> 4, stride between 8-row atoms (SBO) 1024 bytes, layout 128-byte
+// swizzle; the leading offset is unused for a swizzled K-major operand
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps nvcc from moving accumulator reads or writes across the async wgmma
+template <int R>
+__device__ __forceinline__ void acc_fence(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d (64 x N int32 tile of the warpgroup) += A (64 x 32, da) . B (N x 32, db)^T
+__device__ __forceinline__ void wgmma_n32(int (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n64(int (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n128(int (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma(int (&d)[BN / 2], uint64_t da, uint64_t db) {
+  if constexpr (BN == 128)
+    wgmma_n128(d, da, db);
+  else if constexpr (BN == 64)
+    wgmma_n64(d, da, db);
+  else
+    wgmma_n32(d, da, db);
+}
+
+template <int BN, bool kBf16>
+__global__ void __launch_bounds__(kThreads, 1)
+    qconv_wgmma_kernel(Src xa, Src xb, const int8_t* __restrict__ w, const void* mult,
+                       const void* bias, int8_t* __restrict__ out, int B, int H, int W,
+                       int N) {
+  using T = Tile<BN>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;  // shared address of stage 0
+  int8_t* const ring_ptr = reinterpret_cast<int8_t*>(smem_raw + (ring - raw));
+
+  const int C = xa.c + xb.c;
+  const int K = 9 * C;
+  const int KT = (K + kBK - 1) / kBK;
+  const long M = static_cast<long>(B) * H * W;
+  const int ntiles = N / BN;  // the N tiles of one M tile are neighbours in the grid
+  const long m0 = static_cast<long>(blockIdx.x / ntiles) * kBM;
+  const int n0 = static_cast<int>(blockIdx.x % ntiles) * BN;
+  const int tid = threadIdx.x;
+
+  // loads: thread tid fills 16-byte chunk j of rows r0 + 32 i of A (4 rows)
+  // and of B (BN / 32 rows); the chunk's k = kt * 128 + 16 j names one tap
+  // and one source, as every source's channel count is a multiple of 32
+  const int j = tid & 7, r0 = tid >> 3;
+  int py[4], px[4];
+  bool pin[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long m = m0 + r0 + 32 * i;
+    pin[i] = m < M;
+    px[i] = static_cast<int>(m % W);
+    py[i] = static_cast<int>((m / W) % H);
+  }
+
+  auto load_stage = [&](int stage, int kt) {
+    int8_t* const sa = ring_ptr + stage * T::kStage;
+    int8_t* const sb = sa + T::kA;
+    const int k = kt * kBK + 16 * j;
+    const bool kin = k < K;  // the K tail (K = 9 C is a multiple of 32, not 128) is zero
+    const int tap = kin ? k / C : 0;
+    const int c = k - tap * C;
+    const bool first = c < xa.c;
+    const int8_t* const p = first ? xa.p : xb.p;
+    const int cs = first ? xa.c : xb.c, cc = first ? c : c - xa.c;
+    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int iy = py[i] + dy, ix = px[i] + dx;
+      const bool ok = kin && pin[i] && iy >= 0 && iy < H && ix >= 0 && ix < W;
+      const long pix = m0 + r0 + 32 * i + static_cast<long>(dy) * W + dx;
+      cp_async16(sa + swz(r0 + 32 * i, j), ok ? p + pix * cs + cc : xa.p, ok);
+    }
+#pragma unroll
+    for (int i = 0; i < BN / 32; ++i) {
+      const int n = r0 + 32 * i;
+      cp_async16(sb + swz(n, j), kin ? w + static_cast<long>(n0 + n) * K + k : w, kin);
+    }
+  };
+
+  int acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+  const uint32_t a_rows = (tid >> 7) * 64 * kBK;  // this warpgroup's 64 rows of A
+
+#pragma unroll
+  for (int s = 0; s < kStages - 2; ++s) {
+    if (s < KT) load_stage(s, s);
+    cp_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_wait<kStages - 3>();  // this thread's copies of slice kt have landed
+    fence_proxy_async();     // ... and are visible to wgmma's async proxy
+    __syncthreads();         // every thread's copies of slice kt; group kt - 2 retired
+    const int nk = kt + kStages - 2;  // refill stage (kt - 2) % kStages
+    if (nk < KT) load_stage(nk % kStages, nk);
+    cp_commit();
+
+    const uint32_t sa = ring + (kt % kStages) * T::kStage;
+    wgmma_fence();
+    acc_fence(acc);
+#pragma unroll
+    for (int kk = 0; kk < kBK / 32; ++kk)
+      wgmma<BN>(acc, desc(sa + a_rows + 32 * kk), desc(sa + T::kA + 32 * kk));
+    wgmma_commit();
+    acc_fence(acc);
+    wgmma_wait<1>();  // group kt - 1 retired before the next barrier lets its stage refill
+    acc_fence(acc);
+  }
+  wgmma_wait<0>();
+  acc_fence(acc);
+  cp_wait<0>();
+  __syncthreads();  // both warpgroups are done with the ring: it holds the output tile now
+
+  // epilogue: thread (warp w of its warpgroup, lane 4 g + t4) holds rows
+  // 16 w + g and 16 w + g + 8 of its warpgroup's 64, columns 8 i + 2 t4 and
+  // 8 i + 2 t4 + 1 of each n8 tile i (the mma.sync indexing)
+  {
+    const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+    const int row = (tid >> 7) * 64 + ((tid >> 5) & 3) * 16 + g;
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {
+      const int n = 8 * i + 2 * t4;
+      const float mu0 = load_param<kBf16>(mult, n0 + n), mu1 = load_param<kBf16>(mult, n0 + n + 1);
+      const float b0 = load_param<kBf16>(bias, n0 + n), b1 = load_param<kBf16>(bias, n0 + n + 1);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        char2 q;
+        q.x = requant<kBf16>(acc[4 * i + 2 * h], mu0, b0);
+        q.y = requant<kBf16>(acc[4 * i + 2 * h + 1], mu1, b1);
+        *reinterpret_cast<char2*>(ring_ptr + (row + 8 * h) * T::kPitch + n) = q;
+      }
+    }
+  }
+  __syncthreads();
+  // the int8 tile in 16-byte rows: consecutive threads, consecutive bytes of a row
+  constexpr int kChunks = BN / 16;
+#pragma unroll
+  for (int it = 0; it < kBM * kChunks / kThreads; ++it) {
+    const int i = tid + it * kThreads;
+    const int r = i / kChunks, c = i % kChunks;
+    const long m = m0 + r;
+    if (m < M)
+      *reinterpret_cast<uint4*>(out + m * N + n0 + 16 * c) =
+          *reinterpret_cast<const uint4*>(ring_ptr + r * T::kPitch + 16 * c);
+  }
+}
+
+template <int BN>
+cudaError_t launch_wgmma(bool bf16, Src xa, Src xb, const int8_t* w, const void* mult,
+                         const void* bias, int8_t* out, int B, int H, int W, int N,
+                         cudaStream_t stream) {
+  const long M = static_cast<long>(B) * H * W;
+  const long blocks = (M + kBM - 1) / kBM * (N / BN);
+  auto kernel = bf16 ? qconv_wgmma_kernel<BN, true> : qconv_wgmma_kernel<BN, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Tile<BN>::kSmem);
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, Tile<BN>::kSmem, stream>>>(
+      xa, xb, w, mult, bias, out, B, H, W, N);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
 
 }  // namespace
 
 // The wrapper (qconv_kernels.qconv) has checked shapes, types, devices and
-// contiguity. `vec` != 0 only when ca and cb are multiples of 32 and both
-// sources and the weights are 16-byte aligned. xb may be null when cb == 0.
-// Returns the launch's cudaGetLastError().
-extern "C" int qconv_s8(const void* xa, int ca, const void* xb, int cb, const void* w,
-                        const void* mult, const void* bias, int bf16, void* out, int B, int H,
-                        int W, int N, int vec, void* stream) {
+// contiguity and picked the route and the tile width (`qconv_kernels.route`).
+// xb may be null when cb == 0. Each returns the launch's cudaGetLastError(),
+// or cudaErrorInvalidValue for a shape or tile width its kernel does not take.
+
+// The mma.sync kernel, any shape: bn 32, 64 or 128; `vec` != 0 only when
+// ca and cb are multiples of 32 and both sources and the weights are 16-byte
+// aligned (16-byte copies; else the byte path).
+extern "C" int qconv_s8_sync(const void* xa, int ca, const void* xb, int cb, const void* w,
+                             const void* mult, const void* bias, int bf16, void* out, int B,
+                             int H, int W, int N, int bn, int vec, void* stream) {
   const Src sa{static_cast<const int8_t*>(xa), ca};
   const Src sb{xb ? static_cast<const int8_t*>(xb) : static_cast<const int8_t*>(xa), cb};
   const int8_t* wq = static_cast<const int8_t*>(w);
   int8_t* o = static_cast<int8_t*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (N % 128 == 0)
+  if (bn == 128)
     err = launch_bn<128>(vec != 0, bf16 != 0, sa, sb, wq, mult, bias, o, B, H, W, N, s);
-  else if (N % 64 == 0)
+  else if (bn == 64)
     err = launch_bn<64>(vec != 0, bf16 != 0, sa, sb, wq, mult, bias, o, B, H, W, N, s);
-  else
+  else if (bn == 32)
     err = launch_bn<32>(vec != 0, bf16 != 0, sa, sb, wq, mult, bias, o, B, H, W, N, s);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+// The wgmma kernel: ca and cb multiples of 32, N a multiple of bn (32, 64 or
+// 128), the sources, the weights and the output 16-byte aligned.
+extern "C" int qconv_s8_wgmma(const void* xa, int ca, const void* xb, int cb, const void* w,
+                              const void* mult, const void* bias, int bf16, void* out, int B,
+                              int H, int W, int N, int bn, void* stream) {
+  const uintptr_t align = reinterpret_cast<uintptr_t>(xa) | reinterpret_cast<uintptr_t>(xb) |
+                          reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(out);
+  if (ca % 32 != 0 || cb % 32 != 0 || ca + cb == 0 || bn <= 0 || N % bn != 0 || (align & 15))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Src sa{static_cast<const int8_t*>(xa), ca};
+  const Src sb{xb ? static_cast<const int8_t*>(xb) : static_cast<const int8_t*>(xa), cb};
+  const int8_t* wq = static_cast<const int8_t*>(w);
+  int8_t* o = static_cast<int8_t*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (bn == 128)
+    err = wg::launch_wgmma<128>(bf16 != 0, sa, sb, wq, mult, bias, o, B, H, W, N, s);
+  else if (bn == 64)
+    err = wg::launch_wgmma<64>(bf16 != 0, sa, sb, wq, mult, bias, o, B, H, W, N, s);
+  else if (bn == 32)
+    err = wg::launch_wgmma<32>(bf16 != 0, sa, sb, wq, mult, bias, o, B, H, W, N, s);
+  else
+    err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }

@@ -4,8 +4,8 @@ its plain version.
 Replaces, on the int8 forward (models/quantized.py), the JAX package's
 `_qconv` + `_requant` (unet_tpu/models/quantized.py:183-219), which XLA
 runs as lax.conv_general_dilated s8 x s8 -> s32 and an elementwise chain.
-Not a TPU kernel: PyTorch has no eager CUDA int8 convolution. The kernel is
-`csrc/qconv.cu` (its header says how it is built and bounded).
+Not a TPU kernel: PyTorch has no eager CUDA int8 convolution. The kernels
+are in `csrc/qconv.cu` (its header says how they are built and bounded).
 
 Layouts, as in the JAX package but with the weights OHWI:
   x     (B, H, W, C) int8 NHWC, or a pair (a, b) of such tensors that share
@@ -17,13 +17,17 @@ Layouts, as in the JAX package but with the weights OHWI:
         acc the int32 stride-1, zero-padded conv; each op rounds to the type
         (PyTorch's and XLA's arithmetic), round half to even.
 
-The kernel and `qconv_plain` agree bit for bit: the accumulator is exact in
-both (the plain version sums in float64, exact for every |acc| <=
+Both kernels and `qconv_plain` agree bit for bit: the accumulator is exact in
+all three (the plain version sums in float64, exact for every |acc| <=
 127 * 127 * 9 * 768 < 2**53), and the epilogue rounds at the same places.
 
 `qconv` dispatches on the device of its input: a CPU tensor goes to
-`qconv_plain`, a CUDA tensor launches the kernel or raises. `launches`
-counts kernel launches.
+`qconv_plain`, a CUDA tensor launches a kernel or raises. Which kernel is a
+pure function of the shapes and the alignment (`route`): the wgmma kernel
+for every source width a multiple of 32 (17 of the int8 forward's 18
+convs), the mma.sync kernel otherwise (Cin = 3, ragged shapes). There is
+no fallback from one to the other. `launches_wgmma` and `launches_sync`
+count each kernel's launches, `launches` their sum.
 """
 from __future__ import annotations
 
@@ -35,7 +39,9 @@ import torch.nn.functional as F
 
 from unet_tpu_torch import _build
 
-launches = 0
+launches = 0         # every kernel launch: launches_wgmma + launches_sync
+launches_wgmma = 0
+launches_sync = 0
 
 Source = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 _TYPES = (torch.bfloat16, torch.float32)
@@ -68,13 +74,26 @@ def _check(x: Source, wq: torch.Tensor, mult: torch.Tensor, bias: torch.Tensor):
     return srcs
 
 
-def qconv(x: Source, wq: torch.Tensor, mult: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """The fused int8 conv + requant; (B, H, W, N) int8."""
-    global launches
-    srcs = _check(x, wq, mult, bias)
+def route(ca: int, cb: int, n: int, aligned: bool) -> Tuple[str, int]:
+    """Which kernel and tile width a CUDA launch takes, from the shapes and
+    alignment alone: ("wgmma", BN) when both sources' channel counts are
+    multiples of 32, N is a multiple of 32 and the buffers are 16-byte
+    aligned (17 of the 18 convs of the int8 forward); else ("sync", BN),
+    the mma.sync kernel with its byte path (conv0_0.conv1's Cin = 3,
+    ragged shapes). BN is the largest of 128, 64 and 32 that divides N (32
+    for the sync kernel's ragged N)."""
+    bn = next((t for t in (128, 64, 32) if n % t == 0), 32)
+    if ca % 32 == 0 and cb % 32 == 0 and n % 32 == 0 and aligned:
+        return "wgmma", bn
+    return "sync", bn
+
+
+def _launch(srcs, wq: torch.Tensor, mult: torch.Tensor, bias: torch.Tensor,
+            force_sync: bool) -> torch.Tensor:
+    """Checks what the kernels need and launches the routed kernel (or the
+    sync kernel when `force_sync`); raises on a refused launch."""
+    global launches, launches_wgmma, launches_sync
     dev = srcs[0].device
-    if dev.type == "cpu":
-        return qconv_plain(x, wq, mult, bias)
     if dev.type != "cuda":
         raise ValueError(f"qconv runs on cpu or cuda, not {dev}")
     for v in srcs + (wq, mult, bias):
@@ -84,24 +103,56 @@ def qconv(x: Source, wq: torch.Tensor, mult: torch.Tensor, bias: torch.Tensor) -
     N = wq.shape[0]
     a, b = srcs[0], (srcs[1] if len(srcs) == 2 else None)
     ca, cb = a.shape[3], (b.shape[3] if b is not None else 0)
-    vec = (ca % 32 == 0 and cb % 32 == 0
-           and all(t.data_ptr() % 16 == 0 for t in (a, wq) + ((b,) if b is not None else ())))
+    aligned = all(t.data_ptr() % 16 == 0 for t in srcs + (wq,))
+    kind, bn = route(ca, cb, N, aligned)
+    if force_sync:
+        kind = "sync"
     lib = _build.load("qconv")
-    fn = lib.qconv_s8
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    # (xa, ca, xb, cb, w, mult, bias, bf16, out, B, H, W, N, bn[, vec], stream)
+    args = ([ctypes.c_void_p, ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+            + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5)
+    if kind == "wgmma":
+        fn, vec = lib.qconv_s8_wgmma, ()
+    else:
+        # the sync kernel's 16-byte copies take the shapes the wgmma route takes
+        fn, vec = lib.qconv_s8_sync, (int(ca % 32 == 0 and cb % 32 == 0 and aligned),)
+        args.append(ctypes.c_int)
+    fn.argtypes = args + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = torch.empty((B, H, W, N), dtype=torch.int8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(a.data_ptr(), ca, b.data_ptr() if b is not None else None, cb,
                  wq.data_ptr(), mult.data_ptr(), bias.data_ptr(),
-                 int(mult.dtype == torch.bfloat16), out.data_ptr(), B, H, W, N, int(vec),
+                 int(mult.dtype == torch.bfloat16), out.data_ptr(), B, H, W, N, bn, *vec,
                  stream)
     if err != 0:
-        raise RuntimeError(f"qconv launch failed: CUDA error {err}")
+        raise RuntimeError(f"qconv launch failed ({kind} route, BN {bn}): CUDA error {err}")
     launches += 1
+    if kind == "wgmma":
+        launches_wgmma += 1
+    else:
+        launches_sync += 1
     return out
+
+
+def qconv(x: Source, wq: torch.Tensor, mult: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The fused int8 conv + requant; (B, H, W, N) int8. A CUDA input
+    launches the kernel that `route` names."""
+    srcs = _check(x, wq, mult, bias)
+    if srcs[0].device.type == "cpu":
+        return qconv_plain(x, wq, mult, bias)
+    return _launch(srcs, wq, mult, bias, force_sync=False)
+
+
+def qconv_sync(x: Source, wq: torch.Tensor, mult: torch.Tensor,
+               bias: torch.Tensor) -> torch.Tensor:
+    """`qconv` through the mma.sync kernel at any shape: the yardstick
+    that the wgmma route is timed against. Not on the main path."""
+    srcs = _check(x, wq, mult, bias)
+    if srcs[0].device.type == "cpu":
+        return qconv_plain(x, wq, mult, bias)
+    return _launch(srcs, wq, mult, bias, force_sync=True)
 
 
 def conv_acc_plain(x: Source, wq: torch.Tensor) -> torch.Tensor:
