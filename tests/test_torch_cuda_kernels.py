@@ -210,19 +210,30 @@ def _to(x, dev):
 
 
 def _launch_counts():
-    return (qconv_kernels.launches, qconv_kernels.launches_wgmma, qconv_kernels.launches_sync)
+    return (qconv_kernels.launches, qconv_kernels.launches_wgmma, qconv_kernels.launches_sync,
+            qconv_kernels.launches_c3)
 
 
 def _expect_route(x, n):
     srcs = x if isinstance(x, tuple) else (x,)
     ca, cb = srcs[0].shape[-1], (srcs[1].shape[-1] if len(srcs) == 2 else 0)
-    return qconv_kernels.route(ca, cb, n, aligned=True)
+    return qconv_kernels.route(ca, cb, n, aligned=True, width=srcs[0].shape[2])
+
+
+_ROUTE_DELTA = {"wgmma": (1, 0, 0), "sync": (0, 1, 0), "c3": (0, 0, 1)}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape,cin,n,pair,signed", [
-    ((2, 32, 32), 3, 32, False, True),       # conv0_0.conv1: Cin 3, the byte path
+    ((2, 32, 32), 3, 32, False, True),       # conv0_0.conv1: Cin 3, the c3 kernel
+    # the c3 kernel: three distinct images (the halo at image borders), a
+    # ragged last row tile with W x 3 % 16 == 0, two N blocks; and Cin 3
+    # rows that end inside a 16-byte chunk, which take the sync byte path
+    ((3, 512, 512), 3, 32, False, True),
+    ((1, 33, 48), 3, 32, False, True),
+    ((2, 17, 80), 3, 64, False, True),
+    ((1, 9, 15), 3, 32, False, True),
     ((1, 7, 9), 5, 10, False, True),         # ragged: odd N, Cin and plane
     ((2, 5, 3), 37, 33, True, False),        # a ragged pair (byte path)
     ((2, 64, 64), 32, 32, False, False),     # conv0_0.conv2
@@ -244,10 +255,10 @@ def _expect_route(x, n):
 ])
 def test_qconv_matches_plain(card, dtype, shape, cin, n, pair, signed):
     """The kernel bit for bit against `qconv_plain`, single and pair forms,
-    both routes (wgmma for every source width a multiple of 32, mma.sync's
-    byte path otherwise), every tile width of each (N % 128, % 64, else 32)
-    and both compute types; each launch counted on the route `route`
-    names."""
+    every route (wgmma for every source width a multiple of 32, c3 for one
+    source of 3 channels with rows of whole 16-byte chunks, mma.sync's
+    byte path otherwise), every tile width (N % 128, % 64, else 32) and
+    both compute types; each launch counted on the route `route` names."""
     x, wq, mult, bias = _qconv_case(shape, cin, n, pair, signed, dtype)
     if pair:
         assert (x[0].shape[-1] % 32 == 0) == (cin % 96 == 0)
@@ -258,7 +269,7 @@ def test_qconv_matches_plain(card, dtype, shape, cin, n, pair, signed):
     torch.cuda.synchronize()
     after = _launch_counts()
     assert after[0] == before[0] + 1
-    assert (after[1] - before[1], after[2] - before[2]) == ((1, 0) if kind == "wgmma" else (0, 1))
+    assert tuple(a - b for a, b in zip(after[1:], before[1:])) == _ROUTE_DELTA[kind]
     want = qconv_kernels.qconv_plain(xd, wd, md, bd)
     assert got.shape == shape + (n,) and got.dtype == torch.int8
     assert torch.equal(got, want)
@@ -281,16 +292,19 @@ def test_qconv_sync_route_matches_plain_at_wgmma_shapes(card, dtype, shape, cin,
     got = qconv_kernels.qconv_sync(xd, wd, md, bd)
     torch.cuda.synchronize()
     after = _launch_counts()
-    assert tuple(a - b for a, b in zip(after, before)) == (1, 0, 1)
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 0, 1, 0)
     assert torch.equal(got, qconv_kernels.qconv(xd, wd, md, bd))
     assert torch.equal(got, qconv_kernels.qconv_plain(xd, wd, md, bd))
 
 
 @pytest.mark.cuda
-def test_qconv_misaligned_source_takes_the_sync_route(card):
+@pytest.mark.parametrize("cin", [32, 3])
+def test_qconv_misaligned_source_takes_the_sync_route(card, cin):
     """A source that is not 16-byte aligned (a view one byte into its
-    storage) goes to the sync kernel's byte path, by the route alone."""
-    x, wq, mult, bias = _qconv_case((1, 12, 12), 32, 32, False, False, torch.bfloat16)
+    storage) goes to the sync kernel's byte path, by the route alone: at a
+    wgmma shape and at a c3 shape."""
+    x, wq, mult, bias = _qconv_case((1, 12, 16), cin, 32, False, False, torch.bfloat16)
+    assert _expect_route(x, 32)[0] == ("wgmma" if cin == 32 else "c3")
     flat = torch.empty(x.numel() + 1, dtype=torch.int8, device=card)
     xd = flat[1:].view(x.shape)
     xd.copy_(x.to(card))
@@ -298,7 +312,7 @@ def test_qconv_misaligned_source_takes_the_sync_route(card):
     before = _launch_counts()
     got = qconv_kernels.qconv(xd, wq.to(card), mult.to(card), bias.to(card))
     torch.cuda.synchronize()
-    assert tuple(a - b for a, b in zip(_launch_counts(), before)) == (1, 0, 1)
+    assert tuple(a - b for a, b in zip(_launch_counts(), before)) == (1, 0, 1, 0)
     assert torch.equal(got.cpu(), qconv_kernels.qconv_plain(x, wq, mult, bias))
 
 
@@ -334,8 +348,8 @@ def test_int8_forward_on_the_card_equals_the_cpu(card):
         want = quantized.nested_unet_forward_int8(qp_cpu, x, taps_cpu)
         got = quantized.nested_unet_forward_int8(qp_card, x.to(card), taps_card)
     torch.cuda.synchronize()
-    # 17 convs on the wgmma route, conv0_0.conv1 (Cin 3) on the sync kernel
-    assert tuple(a - b for a, b in zip(_launch_counts(), before)) == (18, 17, 1)
+    # 17 convs on the wgmma route, conv0_0.conv1 (Cin 3) on the c3 kernel
+    assert tuple(a - b for a, b in zip(_launch_counts(), before)) == (18, 17, 0, 1)
     assert sorted(taps_card) == sorted(quantized.TAP_NAMES)
     for name in quantized.TAP_NAMES:
         assert torch.equal(taps_card[name].cpu(), taps_cpu[name]), name
@@ -361,7 +375,7 @@ def test_bf16_and_int8_steps_on_the_card(card, route):
     got = stages.build_step(model, cfg, device=card)(frames)
     torch.cuda.synchronize()
     assert (tuple(a - b for a, b in zip(_launch_counts(), before))
-            == ((18, 17, 1) if route == "int8" else (0, 0, 0)))
+            == ((18, 17, 0, 1) if route == "int8" else (0, 0, 0, 0)))
     want = stages.build_step(model, cfg, device="cpu")(frames)
     agree = float((got.class_map.cpu() == want.class_map).float().mean())
     assert agree >= 0.995, agree

@@ -9,6 +9,8 @@ Bit for bit: the int32 accumulator of `_qconv` (single and pair forms),
 JAX package's own QParams carried across (`qparams_from_jax`), all 19 int8
 tensors of the forward. Within tolerances: the weight preparation, the
 calibration, the logits, and the two_stage step with calibrated scales."""
+import re
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -23,6 +25,7 @@ from unet_tpu.pipeline import presets as jpresets
 from unet_tpu.pipeline import stages as jstages
 from unet_tpu_torch.models import NestedUNet
 from unet_tpu_torch.models import quantized as tq
+from unet_tpu_torch import _build
 from unet_tpu_torch.models.convert import qparams_from_jax, state_dict_from_flax
 from unet_tpu_torch.ops import qconv_kernels
 from unet_tpu_torch.pipeline import presets, stages
@@ -247,9 +250,10 @@ def test_two_stage_int8_step_matches_jax():
 
 
 # The int8 forward's 18 convs: (Ca, Cb, N) of each (Cb > 0 for a decoder
-# pair) and the route `qconv_kernels.route` gives it on the card.
+# pair) and the route `qconv_kernels.route` gives it on the card at the
+# 512^2 model input (level i of the UNet is 512 >> i wide).
 MAIN_PATH_CONVS = {
-    "conv0_0.conv1": ((3, 0, 32), ("sync", 32)),
+    "conv0_0.conv1": ((3, 0, 32), ("c3", 32)),
     "conv0_0.conv2": ((32, 0, 32), ("wgmma", 32)),
     "conv1_0.conv1": ((32, 0, 64), ("wgmma", 64)),
     "conv1_0.conv2": ((64, 0, 64), ("wgmma", 64)),
@@ -273,26 +277,117 @@ MAIN_PATH_CONVS = {
 @pytest.mark.parametrize("site", sorted(MAIN_PATH_CONVS))
 def test_qconv_route_of_each_main_path_conv(site):
     """17 convs take the wgmma kernel at BN = min(N, 128), conv0_0.conv1
-    (Cin 3) the sync kernel; a misaligned buffer sends any of them to the
+    (Cin 3) the c3 kernel; a misaligned buffer sends any of them to the
     sync kernel, never to a plain version."""
     (ca, cb, n), want = MAIN_PATH_CONVS[site]
-    assert qconv_kernels.route(ca, cb, n, aligned=True) == want
-    assert qconv_kernels.route(ca, cb, n, aligned=False) == ("sync", want[1])
+    width = 512 >> int(site[4])
+    assert qconv_kernels.route(ca, cb, n, aligned=True, width=width) == want
+    assert qconv_kernels.route(ca, cb, n, aligned=False, width=width) == ("sync", want[1])
     if want[0] == "wgmma":
         assert want[1] == min(n, 128)
 
 
-@pytest.mark.parametrize("ca,cb,n,want", [
-    (3, 0, 32, ("sync", 32)), (5, 0, 10, ("sync", 32)), (12, 25, 33, ("sync", 32)),
-    (48, 0, 64, ("sync", 64)), (32, 16, 128, ("sync", 128)), (16, 32, 32, ("sync", 32)),
-    (32, 0, 48, ("sync", 32)), (64, 0, 40, ("sync", 32)), (64, 0, 8, ("sync", 32)),
-    (32, 0, 96, ("wgmma", 32)), (96, 0, 192, ("wgmma", 64)), (768, 0, 384, ("wgmma", 128)),
-    (32, 64, 1024, ("wgmma", 128))])
-def test_qconv_route_of_ragged_and_misaligned_shapes(ca, cb, n, want):
+@pytest.mark.parametrize("ca,cb,n,width,want", [
+    (3, 0, 32, 512, ("c3", 32)), (5, 0, 10, 512, ("sync", 32)), (12, 25, 33, 512, ("sync", 32)),
+    (48, 0, 64, 512, ("sync", 64)), (32, 16, 128, 512, ("sync", 128)),
+    (16, 32, 32, 512, ("sync", 32)), (32, 0, 48, 512, ("sync", 32)),
+    (64, 0, 40, 512, ("sync", 32)), (64, 0, 8, 512, ("sync", 32)),
+    (32, 0, 96, 512, ("wgmma", 32)), (96, 0, 192, 512, ("wgmma", 64)),
+    (768, 0, 384, 512, ("wgmma", 128)), (32, 64, 1024, 512, ("wgmma", 128)),
+    # Cin 3: rows that end inside a 16-byte chunk, a pair, N not a multiple
+    # of 32 take the sync kernel; N = 64 takes the c3 kernel in two blocks
+    (3, 0, 32, 15, ("sync", 32)), (3, 0, 32, 20, ("sync", 32)), (3, 5, 32, 512, ("sync", 32)),
+    (3, 0, 40, 512, ("sync", 32)), (3, 0, 64, 512, ("c3", 32)), (3, 0, 64, 16, ("c3", 32)),
+    (3, 0, 96, 48, ("c3", 32))])
+def test_qconv_route_of_ragged_and_misaligned_shapes(ca, cb, n, width, want):
     """A channel count or an N that is not a multiple of 32 takes the sync
-    kernel (with its tile rule: 128, 64, else 32); every route is a kernel."""
-    assert qconv_kernels.route(ca, cb, n, aligned=True) == want
-    assert qconv_kernels.route(ca, cb, n, aligned=False)[0] == "sync"
+    kernel (with its tile rule: 128, 64, else 32), as does a Cin-3 plane
+    whose rows are not whole 16-byte chunks; a misaligned buffer takes the
+    sync kernel at any shape; every route is a kernel."""
+    assert qconv_kernels.route(ca, cb, n, aligned=True, width=width) == want
+    assert qconv_kernels.route(ca, cb, n, aligned=False, width=width)[0] == "sync"
+
+
+def _c3_constants():
+    """(kRows, kCols, kBN) of the c3 kernel, read from csrc/qconv.cu, so
+    that the model below follows the kernel's tiling as it stands."""
+    src = (_build.CSRC / "qconv.cu").read_text()
+    body = src[src.index("namespace c3 {"):]
+    return tuple(int(re.search(rf"constexpr int {k} = (\d+);", body).group(1))
+                 for k in ("kRows", "kCols", "kBN"))
+
+
+def _c3_kernel_model(x: np.ndarray, wq: np.ndarray, mult: torch.Tensor, bias: torch.Tensor):
+    """numpy model of `qconv_c3_kernel`'s addressing, block by block: the
+    halo tile staged in 16-byte chunks of the flat NHWC buffer (a chunk
+    outside the image's rows or its row's bytes zero-filled), each pixel's
+    K row read from the halo at byte 13 + 3 x + (k // 9) * pitch + k % 9,
+    the block's weights from one run of 27 * kBN bytes, the int32 product,
+    the plain requant, and the store of the tile's pixels inside the plane.
+    Returns the output and how many times each output byte was written."""
+    rows, cols, bn = _c3_constants()
+    B, H, W, _ = x.shape
+    N = wq.shape[0]
+    chunks = 3 * cols // 16 + 2
+    pitch = 16 * chunks
+    flat, wflat = x.reshape(-1), wq.reshape(-1)
+    out = np.zeros(B * H * W * N, np.int8)
+    writes = np.zeros(B * H * W * N, np.int64)
+    tiles_x, tiles_y = -(-W // cols), -(-H // rows)
+    p = np.arange(rows * cols)
+    k = np.arange(27)
+    for blk in range(B * tiles_y * tiles_x):
+        tx, rest = blk % tiles_x, blk // tiles_x
+        ty, b = rest % tiles_y, rest // tiles_y
+        x0, y0 = tx * cols, ty * rows
+        halo = np.zeros((rows + 2) * pitch, np.int8)
+        for hr in range(rows + 2):
+            for j in range(chunks):
+                y, bx = y0 - 1 + hr, 3 * x0 - 16 + 16 * j
+                if 0 <= y < H and 0 <= bx < 3 * W:
+                    at = (b * H + y) * 3 * W + bx
+                    assert at % 16 == 0 and bx + 16 <= 3 * W
+                    halo[hr * pitch + 16 * j:hr * pitch + 16 * j + 16] = flat[at:at + 16]
+        src = (p[:, None] // cols) * pitch + 13 + 3 * (p[:, None] % cols)
+        a = np.zeros((rows * cols, 32), np.int64)
+        a[:, :27] = halo[src + (k // 9) * pitch + k % 9]
+        py, px = y0 + p // cols, x0 + p % cols
+        inside = (py < H) & (px < W)
+        for n0 in range(0, N, bn):
+            wb = np.zeros((bn, 32), np.int64)
+            wb[:, :27] = wflat[n0 * 27:(n0 + bn) * 27].reshape(bn, 27)
+            acc = torch.from_numpy((a @ wb.T).astype(np.int32))
+            q = qconv_kernels.requant_plain(acc, mult[n0:n0 + bn], bias[n0:n0 + bn]).numpy()
+            at = ((b * H + py[inside]) * W + px[inside]) * N + n0
+            idx = at[:, None] + np.arange(bn)
+            out[idx] = q[inside]
+            writes[idx] += 1
+    return out.reshape(B, H, W, N), writes
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,n", [
+    ((3, 6, 64), 32),     # three images: the halo at every image border
+    ((1, 33, 48), 32),    # a ragged last row tile, a partial column tile
+    ((2, 5, 80), 64),     # two column tiles, the second partial; two N blocks
+    ((1, 4, 16), 96),     # a plane narrower than a tile, three N blocks
+])
+def test_qconv_c3_kernel_model_matches_plain(shape, n, dtype):
+    """The c3 kernel's tiling and addressing, modelled in numpy, gives
+    `qconv_plain`'s output bit for bit and writes every output byte once,
+    on shapes that the route sends to it (signed codes)."""
+    assert qconv_kernels.route(3, 0, n, aligned=True, width=shape[2]) == ("c3", 32)
+    rng = np.random.default_rng(11)
+    x = rng.integers(-127, 128, shape + (3,)).astype(np.int8)
+    wq = rng.integers(-127, 128, (n, 3, 3, 3)).astype(np.int8)
+    spread = np.sqrt(27) * 5340 / 40
+    mult = torch.from_numpy((rng.uniform(0.5, 2.0, n) / spread).astype(np.float32)).to(dtype)
+    bias = torch.from_numpy(rng.uniform(-20, 80, n).astype(np.float32)).to(dtype)
+    got, writes = _c3_kernel_model(x, wq, mult, bias)
+    want = qconv_kernels.qconv_plain(torch.from_numpy(x), torch.from_numpy(wq), mult, bias)
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(got, want.numpy())
+    assert 0 < want.float().mean() and int(want.max()) == 127
 
 
 def test_main_path_conv_shapes_are_the_routed_table(shared, monkeypatch):

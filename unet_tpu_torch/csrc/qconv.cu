@@ -35,8 +35,9 @@
 // N up to 512), and the 256^2 ones sit near the line.
 //
 // Design: implicit GEMM, M = output pixels, N = output channels, K = 9 C
-// ordered (tap, c), never an im2col. Two routes, picked by the wrapper
-// from the shapes and the alignment alone (`qconv_kernels.route`):
+// ordered (tap, c), never an im2col. Three routes, picked by the wrapper
+// from the shapes, the plane width and the alignment alone
+// (`qconv_kernels.route`):
 //
 // * wgmma (every source's channel count a multiple of 32, the buffers
 //   16-byte aligned: 17 of the 18 convs of the int8 forward). A block of
@@ -54,12 +55,37 @@
 //   Loads run two slices ahead while one wgmma group is in flight. The
 //   epilogue requantizes the accumulators in registers, writes the int8
 //   tile into the idle ring and stores it in coalesced 16-byte rows.
-// * mma.sync (the first kernel; the byte path of conv0_0.conv1, Cin = 3, and
-//   of ragged shapes): 8 warps of mma.sync m16n8k32 on a 3-stage ring of
-//   32-byte slices with rows padded to 48 bytes; a slice is gathered byte
-//   by byte over (tap, c) when a channel count is not a multiple of 32;
-//   2-byte stores straight to device memory. `qconv_s8_sync` reaches it
-//   at any shape, so that it can be timed beside the wgmma route.
+// * c3 (conv0_0.conv1: one source of 3 channels, N % 32 == 0, 3 W % 16 ==
+//   0, 16-byte aligned buffers). K = 27 is one k32 step, and the layer's
+//   bound is set by its bytes (the 32-byte output rows), 12x over its
+//   tensor-core operations. A block covers 2 rows x 64 columns
+//   of one image (128 pixels) and 32 output channels. It stages input rows
+//   y0 - 1 .. y0 + 2 over columns x0 - 1 .. x0 + 64 as NHWC bytes in a
+//   shared-memory halo tile: 14 aligned 16-byte cp.async chunks a row, from
+//   the chunk before the tile (its last 3 bytes are the left halo pixel)
+//   to the one after it (its first 3 are the right one). A chunk outside
+//   this image's rows or its row's bytes is zero-filled, so the halo's
+//   zeros are the conv's padding (3 W % 16 == 0: no chunk straddles a row
+//   end). With k = 9 dy + 3 dx + c, a pixel's K row is three runs of 9
+//   contiguous halo bytes and 5 zero bytes; the threads build the 128 x 32
+//   A tile from the halo (C = 3 a constant: no division or bounds test per
+//   byte), and the block's 32 x 27 weights, one aligned 864-byte run of w,
+//   into a zero-padded 32 x 32 B tile. One mma.sync m16n8k32 step per
+//   16 x 8 tile with the mma.sync route's fragments and epilogue; the int8
+//   tile goes back through the A tile's space and leaves in 16-byte stores,
+//   consecutive threads on consecutive bytes (N = 32: a tile row is one
+//   2 KiB run of NHWC). Measured (PERF.md §6), it is paced by the
+//   epilogue, not by its bytes: the bf16 chain makes 6 conversions an
+//   output byte (int -> float, 3 float -> bf16, rint, float -> int), the
+//   float32 one 3, and the same launch with a float32 epilogue takes about
+//   half the time, as a conversion rate of 16 values per SM per clock
+//   predicts (0.096 ms for the 67 M outputs of a b=8 batch at 512^2).
+// * mma.sync (the first kernel; the byte path of Cin not a multiple of 32
+//   and of ragged or misaligned shapes): 8 warps of mma.sync m16n8k32 on a
+//   3-stage ring of 32-byte slices with rows padded to 48 bytes; a slice is
+//   gathered byte by byte over (tap, c) when a channel count is not a
+//   multiple of 32; 2-byte stores straight to device memory. `qconv_s8_sync`
+//   reaches it at any shape, so that it can be timed beside the other two.
 //
 // Three traps of the wgmma route, and what the kernel does about each:
 // 1. cp.async writes shared memory through the generic proxy and wgmma
@@ -347,6 +373,169 @@ cudaError_t launch_bn(bool vec, bool bf16, Src xa, Src xb, const int8_t* w, cons
              : launch_sync<BN, false>(bf16, xa, xb, w, mult, bias, out, B, H, W, N, stream);
 }
 
+// -- the c3 route: one source of 3 channels (conv0_0.conv1)
+
+namespace c3 {
+
+constexpr int kRows = 2;                        // output rows of a block
+constexpr int kCols = 64;                       // output columns of a block
+constexpr int kBN = 32;                         // output channels of a block
+constexpr int kChunks = 3 * kCols / 16 + 2;     // 16-byte chunks of a halo row
+constexpr int kHaloPitch = 16 * kChunks;        // 224 bytes
+constexpr int kLeft = 16 - 3;                   // halo byte of input column x0 - 1
+constexpr int kW = kBN * 27;                    // a block's weight bytes: 864
+static_assert(kRows * kCols == kBM, "the mma.sync route's 128-pixel warp layout");
+static_assert((kRows + 2) * kChunks <= 64 && 64 + kW / 16 <= kThreads, "one copy a thread");
+static_assert((3 * kCols) % 16 == 0 && kW % 16 == 0, "aligned chunks");
+
+// bytes K0 .. K0 + 15 of a 32-byte K row whose byte k is rows[k / 9][k % 9]
+// for k < 27 and 0 after: three runs of 9 bytes (k = 9 dy + 3 dx + c)
+template <int K0>
+__device__ __forceinline__ uint4 k_bytes(const int8_t* const (&rows)[3]) {
+  uint32_t v[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int k = K0 + j;
+    if (k < 27)
+      v[j >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(rows[k / 9][k % 9]))
+                   << (8 * (j & 3));
+  }
+  return make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads)
+    qconv_c3_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                    const void* mult, const void* bias, int8_t* __restrict__ out, int H,
+                    int W, int N) {
+  __shared__ __align__(16) int8_t sHalo[(kRows + 2) * kHaloPitch];
+  __shared__ __align__(16) int8_t sW[kW];
+  __shared__ __align__(16) int8_t sA[kBM * kPitch];  // the A tile, then the int8 output tile
+  __shared__ __align__(16) int8_t sB[kBN * kPitch];
+
+  const int tiles_x = (W + kCols - 1) / kCols, tiles_y = (H + kRows - 1) / kRows;
+  const int tx = blockIdx.x % tiles_x, rest = blockIdx.x / tiles_x;
+  const int ty = rest % tiles_y, b = rest / tiles_y;
+  const int x0 = tx * kCols, y0 = ty * kRows, n0 = blockIdx.y * kBN;
+  const int tid = threadIdx.x;
+  const long row_bytes = 3L * W;
+
+  // 1. halo rows y0 - 1 .. y0 + kRows, bytes 3 x0 - 16 .. 3 (x0 + kCols) + 15
+  //    of each; rows outside this image and bytes outside the row are zeros.
+  //    Then the block's weights, rows n0 .. n0 + 31 of the (N, 27) matrix.
+  if (tid < (kRows + 2) * kChunks) {
+    const int hr = tid / kChunks, j = tid % kChunks;
+    const int y = y0 - 1 + hr;
+    const long bx = 3L * x0 - 16 + 16 * j;
+    const bool ok = y >= 0 && y < H && bx >= 0 && bx < row_bytes;
+    cp_async16(sHalo + hr * kHaloPitch + 16 * j,
+               ok ? x + (static_cast<long>(b) * H + y) * row_bytes + bx : x, ok);
+  } else if (tid >= 64 && tid < 64 + kW / 16) {
+    const int q = tid - 64;
+    cp_async16(sW + 16 * q, w + static_cast<long>(n0) * 27 + 16 * q, true);
+  }
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+
+  // 2. the A tile: pixel p = tid % 128 (row p / kCols, column p % kCols of
+  //    the block), bytes 16 h .. 16 h + 15 of its K row (h = tid / 128, the
+  //    same for a whole warp); the B tile from the first two warps
+  {
+    const int p = tid & (kBM - 1);
+    const int8_t* const at = sHalo + (p / kCols) * kHaloPitch + kLeft + 3 * (p % kCols);
+    const int8_t* const rows[3] = {at, at + kHaloPitch, at + 2 * kHaloPitch};
+    uint4* dst = reinterpret_cast<uint4*>(sA + p * kPitch + 16 * (tid >> 7));
+    if (tid < kBM)
+      *dst = k_bytes<0>(rows);
+    else
+      *dst = k_bytes<16>(rows);
+  }
+  if (tid < 2 * kBN) {
+    const int n = tid & (kBN - 1);
+    const int8_t* const rows[3] = {sW + n * 27, sW + n * 27 + 9, sW + n * 27 + 18};
+    uint4* dst = reinterpret_cast<uint4*>(sB + n * kPitch + 16 * (tid >> 5));
+    if (tid < kBN)
+      *dst = k_bytes<0>(rows);
+    else
+      *dst = k_bytes<16>(rows);
+  }
+  __syncthreads();
+
+  // 3. one k32 step: the mma.sync route's warp layout and fragments
+  constexpr int kWN = kBN / 2, kNI = kWN / 8;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int g = lane >> 2, t4 = lane & 3;
+  int acc[2][kNI][4];
+  uint32_t af[2][4], bfr[kNI][2];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+    const int r = wm * 32 + mi * 16 + g;
+    af[mi][0] = lds32(sA + r * kPitch + t4 * 4);
+    af[mi][1] = lds32(sA + (r + 8) * kPitch + t4 * 4);
+    af[mi][2] = lds32(sA + r * kPitch + 16 + t4 * 4);
+    af[mi][3] = lds32(sA + (r + 8) * kPitch + 16 + t4 * 4);
+  }
+#pragma unroll
+  for (int ni = 0; ni < kNI; ++ni) {
+    const int n = wn * kWN + ni * 8 + g;
+    bfr[ni][0] = lds32(sB + n * kPitch + t4 * 4);
+    bfr[ni][1] = lds32(sB + n * kPitch + 16 + t4 * 4);
+  }
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < kNI; ++ni) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0;
+      mma_s8(acc[mi][ni], af[mi], bfr[ni]);
+    }
+  __syncthreads();  // every warp holds its fragments: the A tile's space takes the output
+
+  // 4. the epilogue into shared memory: rows g and g + 8 of each 16-row
+  //    tile, columns 2 t4 and 2 t4 + 1 of each n8 tile
+#pragma unroll
+  for (int ni = 0; ni < kNI; ++ni) {
+    const int n = wn * kWN + ni * 8 + t4 * 2;
+    const float mu0 = load_param<kBf16>(mult, n0 + n), mu1 = load_param<kBf16>(mult, n0 + n + 1);
+    const float b0 = load_param<kBf16>(bias, n0 + n), b1 = load_param<kBf16>(bias, n0 + n + 1);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        char2 q;
+        q.x = requant<kBf16>(acc[mi][ni][h * 2], mu0, b0);
+        q.y = requant<kBf16>(acc[mi][ni][h * 2 + 1], mu1, b1);
+        *reinterpret_cast<char2*>(sA + (wm * 32 + mi * 16 + g + h * 8) * kPitch + n) = q;
+      }
+  }
+  __syncthreads();
+
+  // 5. 16-byte stores: thread tid writes half tid % 2 of pixel tid / 2's 32 bytes
+  {
+    const int p = tid >> 1, c = tid & 1;
+    const int y = y0 + p / kCols, xx = x0 + p % kCols;
+    if (y < H && xx < W)
+      *reinterpret_cast<uint4*>(out + ((static_cast<long>(b) * H + y) * W + xx) * N + n0 +
+                                16 * c) = *reinterpret_cast<const uint4*>(sA + p * kPitch + 16 * c);
+  }
+}
+
+cudaError_t launch_c3(bool bf16, const int8_t* x, const int8_t* w, const void* mult,
+                      const void* bias, int8_t* out, int B, int H, int W, int N,
+                      cudaStream_t stream) {
+  const long tiles = static_cast<long>(B) * ((H + kRows - 1) / kRows) * ((W + kCols - 1) / kCols);
+  const dim3 grid(static_cast<unsigned>(tiles), N / kBN);
+  if (bf16)
+    qconv_c3_kernel<true><<<grid, kThreads, 0, stream>>>(x, w, mult, bias, out, H, W, N);
+  else
+    qconv_c3_kernel<false><<<grid, kThreads, 0, stream>>>(x, w, mult, bias, out, H, W, N);
+  return cudaGetLastError();
+}
+
+}  // namespace c3
+
 // -- the wgmma route: every source's channel count a multiple of 32
 
 namespace wg {
@@ -607,6 +796,21 @@ cudaError_t launch_wgmma(bool bf16, Src xa, Src xb, const int8_t* w, const void*
 // contiguity and picked the route and the tile width (`qconv_kernels.route`).
 // xb may be null when cb == 0. Each returns the launch's cudaGetLastError(),
 // or cudaErrorInvalidValue for a shape or tile width its kernel does not take.
+
+// The c3 kernel: one source x (B, H, W, 3), N a multiple of 32, 3 W a
+// multiple of 16, x, w and out 16-byte aligned.
+extern "C" int qconv_s8_c3(const void* x, const void* w, const void* mult, const void* bias,
+                           int bf16, void* out, int B, int H, int W, int N, void* stream) {
+  const uintptr_t align = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+                          reinterpret_cast<uintptr_t>(out);
+  if (B <= 0 || H <= 0 || W <= 0 || N <= 0 || N % c3::kBN != 0 || N / c3::kBN > 65535 ||
+      (3 * W) % 16 != 0 || (align & 15))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(c3::launch_c3(bf16 != 0, static_cast<const int8_t*>(x),
+                                        static_cast<const int8_t*>(w), mult, bias,
+                                        static_cast<int8_t*>(out), B, H, W, N,
+                                        static_cast<cudaStream_t>(stream)));
+}
 
 // The mma.sync kernel, any shape: bn 32, 64 or 128; `vec` != 0 only when
 // ca and cb are multiples of 32 and both sources and the weights are 16-byte

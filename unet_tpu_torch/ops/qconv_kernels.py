@@ -23,11 +23,13 @@ all three (the plain version sums in float64, exact for every |acc| <=
 
 `qconv` dispatches on the device of its input: a CPU tensor goes to
 `qconv_plain`, a CUDA tensor launches a kernel or raises. Which kernel is a
-pure function of the shapes and the alignment (`route`): the wgmma kernel
-for every source width a multiple of 32 (17 of the int8 forward's 18
-convs), the mma.sync kernel otherwise (Cin = 3, ragged shapes). There is
-no fallback from one to the other. `launches_wgmma` and `launches_sync`
-count each kernel's launches, `launches` their sum.
+pure function of the shapes, the plane width and the alignment (`route`):
+the wgmma kernel for every source width a multiple of 32 (17 of the int8
+forward's 18 convs), the c3 kernel for one source of 3 channels
+(conv0_0.conv1), the mma.sync kernel otherwise (ragged or misaligned
+shapes). There is no fallback from one to another. `launches_wgmma`,
+`launches_c3` and `launches_sync` count each kernel's launches, `launches`
+their sum.
 """
 from __future__ import annotations
 
@@ -39,8 +41,9 @@ import torch.nn.functional as F
 
 from unet_tpu_torch import _build
 
-launches = 0         # every kernel launch: launches_wgmma + launches_sync
+launches = 0         # every kernel launch: launches_wgmma + launches_c3 + launches_sync
 launches_wgmma = 0
+launches_c3 = 0
 launches_sync = 0
 
 Source = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
@@ -74,17 +77,22 @@ def _check(x: Source, wq: torch.Tensor, mult: torch.Tensor, bias: torch.Tensor):
     return srcs
 
 
-def route(ca: int, cb: int, n: int, aligned: bool) -> Tuple[str, int]:
-    """Which kernel and tile width a CUDA launch takes, from the shapes and
-    alignment alone: ("wgmma", BN) when both sources' channel counts are
-    multiples of 32, N is a multiple of 32 and the buffers are 16-byte
-    aligned (17 of the 18 convs of the int8 forward); else ("sync", BN),
-    the mma.sync kernel with its byte path (conv0_0.conv1's Cin = 3,
-    ragged shapes). BN is the largest of 128, 64 and 32 that divides N (32
-    for the sync kernel's ragged N)."""
+def route(ca: int, cb: int, n: int, aligned: bool, width: int) -> Tuple[str, int]:
+    """Which kernel and tile width a CUDA launch takes, from the shapes, the
+    plane width and the alignment alone: ("wgmma", BN) when both sources'
+    channel counts are multiples of 32, N is a multiple of 32 and the
+    buffers are 16-byte aligned (17 of the 18 convs of the int8 forward);
+    ("c3", 32) for one source of 3 channels with N a multiple of 32, aligned
+    buffers and rows of a whole number of 16-byte chunks (3 * width % 16 ==
+    0: conv0_0.conv1); else ("sync", BN), the mma.sync kernel with its byte
+    path (ragged or misaligned shapes). BN is the largest of 128, 64 and 32
+    that divides N (32 for the sync kernel's ragged N); the c3 kernel takes
+    N in blocks of 32."""
     bn = next((t for t in (128, 64, 32) if n % t == 0), 32)
     if ca % 32 == 0 and cb % 32 == 0 and n % 32 == 0 and aligned:
         return "wgmma", bn
+    if ca == 3 and cb == 0 and n % 32 == 0 and aligned and 3 * width % 16 == 0:
+        return "c3", 32
     return "sync", bn
 
 
@@ -92,7 +100,7 @@ def _launch(srcs, wq: torch.Tensor, mult: torch.Tensor, bias: torch.Tensor,
             force_sync: bool) -> torch.Tensor:
     """Checks what the kernels need and launches the routed kernel (or the
     sync kernel when `force_sync`); raises on a refused launch."""
-    global launches, launches_wgmma, launches_sync
+    global launches, launches_wgmma, launches_c3, launches_sync
     dev = srcs[0].device
     if dev.type != "cuda":
         raise ValueError(f"qconv runs on cpu or cuda, not {dev}")
@@ -104,33 +112,43 @@ def _launch(srcs, wq: torch.Tensor, mult: torch.Tensor, bias: torch.Tensor,
     a, b = srcs[0], (srcs[1] if len(srcs) == 2 else None)
     ca, cb = a.shape[3], (b.shape[3] if b is not None else 0)
     aligned = all(t.data_ptr() % 16 == 0 for t in srcs + (wq,))
-    kind, bn = route(ca, cb, N, aligned)
+    kind, bn = route(ca, cb, N, aligned, W)
     if force_sync:
         kind = "sync"
     lib = _build.load("qconv")
-    # (xa, ca, xb, cb, w, mult, bias, bf16, out, B, H, W, N, bn[, vec], stream)
-    args = ([ctypes.c_void_p, ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
-            + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5)
-    if kind == "wgmma":
-        fn, vec = lib.qconv_s8_wgmma, ()
-    else:
-        # the sync kernel's 16-byte copies take the shapes the wgmma route takes
-        fn, vec = lib.qconv_s8_sync, (int(ca % 32 == 0 and cb % 32 == 0 and aligned),)
-        args.append(ctypes.c_int)
-    fn.argtypes = args + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     out = torch.empty((B, H, W, N), dtype=torch.int8, device=dev)
+    bf16 = int(mult.dtype == torch.bfloat16)
+    if kind == "c3":
+        # (x, w, mult, bias, bf16, out, B, H, W, N, stream)
+        fn = lib.qconv_s8_c3
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        args = (a.data_ptr(), wq.data_ptr(), mult.data_ptr(), bias.data_ptr(), bf16,
+                out.data_ptr(), B, H, W, N)
+    else:
+        # (xa, ca, xb, cb, w, mult, bias, bf16, out, B, H, W, N, bn[, vec], stream)
+        argtypes = ([ctypes.c_void_p, ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+                    + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5)
+        if kind == "wgmma":
+            fn, vec = lib.qconv_s8_wgmma, ()
+        else:
+            # the sync kernel's 16-byte copies take the shapes the wgmma route takes
+            fn, vec = lib.qconv_s8_sync, (int(ca % 32 == 0 and cb % 32 == 0 and aligned),)
+            argtypes.append(ctypes.c_int)
+        fn.argtypes = argtypes + [ctypes.c_void_p]
+        args = (a.data_ptr(), ca, b.data_ptr() if b is not None else None, cb,
+                wq.data_ptr(), mult.data_ptr(), bias.data_ptr(), bf16, out.data_ptr(),
+                B, H, W, N, bn, *vec)
+    fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(a.data_ptr(), ca, b.data_ptr() if b is not None else None, cb,
-                 wq.data_ptr(), mult.data_ptr(), bias.data_ptr(),
-                 int(mult.dtype == torch.bfloat16), out.data_ptr(), B, H, W, N, bn, *vec,
-                 stream)
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"qconv launch failed ({kind} route, BN {bn}): CUDA error {err}")
     launches += 1
     if kind == "wgmma":
         launches_wgmma += 1
+    elif kind == "c3":
+        launches_c3 += 1
     else:
         launches_sync += 1
     return out
@@ -148,7 +166,7 @@ def qconv(x: Source, wq: torch.Tensor, mult: torch.Tensor, bias: torch.Tensor) -
 def qconv_sync(x: Source, wq: torch.Tensor, mult: torch.Tensor,
                bias: torch.Tensor) -> torch.Tensor:
     """`qconv` through the mma.sync kernel at any shape: the yardstick
-    that the wgmma route is timed against. Not on the main path."""
+    that the wgmma and c3 routes are timed against. Not on the main path."""
     srcs = _check(x, wq, mult, bias)
     if srcs[0].device.type == "cpu":
         return qconv_plain(x, wq, mult, bias)
