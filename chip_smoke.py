@@ -12,7 +12,17 @@ Phases; any failure exits non-zero and prints no result line:
      `two_stage` (b=8, 800x448; outputs equal to the same step on the CPU)
      and `enhanced` (b=8, 800x448 input turned to 448x800; class maps agree
      >= 0.999 with the CPU route at b=2). The bf16 and int8 `two_stage`
-     paths are driven in phase 6
+     paths are driven in phase 6. Then the geometry paths
+     (`phase_geometry_paths`): `wrap_uniformity` (B1 labels the cable and
+     tape at its model's 256x256, clusters of 8), `production` (two_stage
+     with defect analysis: burr on its crop, then 5 label launches at
+     448x800 on clusters of 16) and `three_class_full` (2 labels at
+     448x800), b=8; class maps, px counts and every diameter and defect
+     field against the same step on the CPU (integers equal, floats within
+     1e-4); each step then timed in turns with the same config with
+     geometry off, so that the difference is the geometry's cost on masks
+     that hold cable and tape, and profiled. B1's sites are named by caller
+     (`_cc_site`)
   4. kernels: B1 (cc_propagate) against its plain version bit for bit, on
      the masks of tests/test_cc_pallas.py, on noise and serpentine masks at
      both paths' crop shapes, on masks that cross the cluster route's stripe
@@ -24,6 +34,8 @@ Phases; any failure exits non-zero and prints no result line:
      ragged tiles and on the three inputs the enhanced path gives it; times
      each at the main path's inputs beside its bound, B1 on both routes in
      turns, and B2 at search 1 (its fixed cost; the rest is per offset).
+     B1 in label mode at 256x256 and 448x800 (noise, wrap tape, and a
+     serpentine that `max_iters` 64 cuts short), each on its cluster size.
      Then B1's trace at the main-path inputs (`trace_cc`): per route, one
      and two iterations, the run-min passes alone, and the masks'
      foreground share; and the global route's sweep against the batch
@@ -33,7 +45,15 @@ Phases; any failure exits non-zero and prints no result line:
      pins cuDNN's convs to full fp32 itself (this script sets no TF32 flag;
      the unpinned forward under PyTorch's defaults is printed beside it),
      then ms per batch and frames/s of both presets at b=8 and b=32, and a
-     profile of one b=32 step of each
+     profile of one b=32 step of each; then `production` and
+     `three_class_full` with the same weights and `wrap_uniformity` with a
+     4-class NestedUNet (256^2), each at b=8 with its launch counts, ms per
+     batch and a profile; then the wrap_uniformity server
+     (`serve.MultiStreamServer`, `phase_serve`) at 8 and 32 streams of
+     800x448 frames, with that NestedUNet and with the colour->class model
+     (cable and tape on every frame): three serves of 2400 frames each,
+     frames/s of each and their median, launch counts per batch, every
+     (stream, frame) once and equal to the step's own result
   6. the bf16 and int8 forwards of `two_stage` with the same weights
      (`NestedUNet(dtype=bfloat16)`): `segment.fast_forward`, and the int8
      forward with scales from `stages.calibrate_int8` on the card; each
@@ -112,6 +132,30 @@ def synthetic_frames(batch: int, h: int, w: int, seed: int = 0,
             py = int(r.integers(4, h - patch - 4))
             bgr[py:py + patch, px:px + patch] = checker
         bgr += r.normal(0, noise, (h, w, 3))
+        out[i] = np.clip(bgr, 0, 255).astype(np.uint8)
+    return out
+
+
+def wrap_scenes(batch: int, h: int, w: int, seed: int = 0) -> np.ndarray:
+    """(batch, h, w, 3) uint8 BGR wrap scenes for the geometry presets: the
+    vertical cable strip of `synthetic_frames` with tape standing out on
+    both of its sides over the middle two thirds of the rows (a flank of
+    25-35 % of the cable's width each side, drawn per frame), the flanks
+    joined across the cable by a band of 4 % of the rows at the top, on a
+    textured background with sensor noise. Rows holding both give the cable
+    and tape diameters; no burr patches."""
+    out = np.empty((batch, h, w, 3), np.uint8)
+    x1, x2 = int(w * 0.35), int(w * 0.45)
+    for i in range(batch):
+        r = np.random.default_rng(seed + i)
+        bgr = r.uniform(40, 70, (h, w, 3))
+        bgr[:, x1:x2] = (180, 180, 175)
+        t = max(2, int(round((x2 - x1) * r.uniform(0.25, 0.35))))
+        y1, y2 = h // 6, 5 * h // 6
+        bgr[y1:y2, x1 - t:x1] = (60, 90, 200)
+        bgr[y1:y2, x2:x2 + t] = (60, 90, 200)
+        bgr[y1:y1 + max(2, h // 25), x1 - t:x2 + t] = (60, 90, 200)
+        bgr += r.normal(0, 6.0, (h, w, 3))
         out[i] = np.clip(bgr, 0, 255).astype(np.uint8)
     return out
 
@@ -361,6 +405,25 @@ def phase_cc(recorded):
     both_callers(big, "beyond-capacity plane (1,1024,1024)")
     if (cc_kernels.launches_global - before[0], cc_kernels.launches_cluster - before[1]) != (6, 0):
         raise AssertionError("the (1024, 1024) plane did not take the global route")
+    # label mode (connected_components: C=1 linear-index seeds, pool 16) at
+    # the geometry presets' planes, the wrap path's 256x256 on a cluster of
+    # 8 and the frame-resolution 448x800 on a cluster of 16; the 448x800
+    # serpentine needs more than 64 iterations, so max 64 truncates it
+    for (H, W), K in (((256, 256), 8), ((448, 800), 16)):
+        state0 = cc._label_seed(H, W, "cuda").expand(8, 1, H, W).contiguous()
+        for name, m in (("noise", rng.random((8, H, W)) < 0.55),
+                        ("wrap tape", wrap_scenes(8, H, W, seed=3)[..., 2] > 150),
+                        ("serpentine", _serpentine(8, H, W))):
+            fg = torch.from_numpy(m).cuda()
+            before = cc_kernels.launches_per_cluster[K]
+            for mi in (1, 2, 64):
+                check(state0, fg, f"label mode {name} (8,{H},{W})", pool_iters=16, max_iters=mi)
+            if cc_kernels.launches_per_cluster[K] - before != 3:
+                raise AssertionError(f"label mode at {H}x{W} did not take a cluster of {K}")
+        if H == 448 and torch.equal(
+                cc_kernels.propagate_plain(state0, fg, pool_iters=16, max_iters=64),
+                cc_kernels.propagate_plain(state0, fg, pool_iters=16, max_iters=256)):
+            raise AssertionError("the 448x800 serpentine converged within 64 iterations")
 
     per_launch = []
     for site, (state0, fg, kw) in recorded.items():
@@ -451,7 +514,7 @@ def trace_cc_batches(recorded):
 
     out = {}
     for site, (state0, fg, kw) in recorded.items():
-        if state0.shape[1] != 1:
+        if not site.endswith("/hysteresis"):
             continue
         P = kw["pool_iters"]
         rec = {}
@@ -528,12 +591,37 @@ def phase_nlm(recorded, sms, clock_hz):
     return per_launch, max_err
 
 
+_CC_CALLERS = {"hysteresis": "hysteresis", "filter_components_by_geometry": "cc_filter",
+               "connected_components": "label"}
+_LABEL_CALLERS = ("largest_component", "count_components", "analyze_defects")
+
+
+def _cc_site(frame) -> str:
+    """The B1 site a call of `cc_kernels.propagate` comes from, by its
+    callers (the stack from `frame` outwards): "hysteresis" (Canny),
+    "cc_filter" (the burr CC filter) or "label (<caller>)", the caller of
+    `ops.cc.connected_components` being largest_component, count_components
+    or analyze_defects."""
+    site = None
+    while frame is not None:
+        name = frame.f_code.co_name
+        if site is None and name in _CC_CALLERS:
+            site = _CC_CALLERS[name]
+            if site != "label":
+                return site
+        elif site == "label" and name in _LABEL_CALLERS:
+            return f"label ({name})"
+        frame = frame.f_back
+    return site or "unknown"
+
+
 def _record_main_path_inputs(step, frames, path: str):
     """Run the step once, keeping a copy of every kernel input: returns
-    ({site: (state0, fg, kwargs)} for cc_propagate, {site: (x, h, template,
-    search)} for nlm, whose calls come as L, a, b, and {site: (x, wq, mult,
-    bias)} for qconv, whose calls come as the blocks' conv1 and conv2 in
-    BLOCK_NAMES order)."""
+    ({site: (state0, fg, kwargs)} for cc_propagate, sites named by caller
+    (`_cc_site`) and numbered in call order where a name repeats,
+    {site: (x, h, template, search)} for nlm, whose calls come as L, a, b,
+    and {site: (x, wq, mult, bias)} for qconv, whose calls come as the
+    blocks' conv1 and conv2 in BLOCK_NAMES order)."""
     from unet_tpu_torch.models.fast_forward import BLOCK_NAMES
     from unet_tpu_torch.ops import cc_kernels, nlm_kernels, qconv_kernels
 
@@ -541,8 +629,11 @@ def _record_main_path_inputs(step, frames, path: str):
     real_cc, real_nlm, real_q = cc_kernels.propagate, nlm_kernels.nlm, qconv_kernels.qconv
 
     def cc_spy(state0, fg, **kw):
-        site = "hysteresis" if state0.shape[1] == 1 else "cc_filter"
-        cc_rec[f"{path}/{site}"] = (state0.clone(), fg.clone(), kw)
+        site = f"{path}/{_cc_site(sys._getframe(1))}"
+        if site.startswith(f"{path}/label"):
+            site = f"{path}/label {sum(k.startswith(f'{path}/label') for k in cc_rec) + 1} " \
+                   + site.split("/label ")[1]
+        cc_rec[site] = (state0.clone(), fg.clone(), kw)
         return real_cc(state0, fg, **kw)
 
     def nlm_spy(x, h, template=7, search=21):
@@ -569,23 +660,42 @@ def _drive(step, frames, expect, what):
     as `expect` says. Returns (outputs, counts)."""
     from unet_tpu_torch.ops import cc_kernels, nlm_kernels, qconv_kernels
 
-    torch.cuda.synchronize()
-    cc_kernels.launches = cc_kernels.launches_cluster = cc_kernels.launches_global = 0
-    nlm_kernels.launches = 0
-    qconv_kernels.launches = qconv_kernels.launches_wgmma = qconv_kernels.launches_sync = 0
-    qconv_kernels.launches_c3 = 0
+    _zero_counts()
     out = step(frames)
-    torch.cuda.synchronize()
-    got = {"cc_propagate": cc_kernels.launches,
-           "cc_propagate_cluster": cc_kernels.launches_cluster,
-           "cc_propagate_global": cc_kernels.launches_global,
-           "nlm": nlm_kernels.launches, "qconv": qconv_kernels.launches,
-           "qconv_wgmma": qconv_kernels.launches_wgmma,
-           "qconv_sync": qconv_kernels.launches_sync, "qconv_c3": qconv_kernels.launches_c3}
+    got = _read_counts()
     _log(f"main path ({what}): launches {got}")
     if got != expect:
         raise AssertionError(f"{what}: expected launches {expect}, got {got}")
     return out, got
+
+
+def _zero_counts() -> None:
+    """Every kernel wrapper's launch count set to 0 (after the card's queue
+    has drained)."""
+    from unet_tpu_torch.ops import cc_kernels, nlm_kernels, qconv_kernels
+
+    torch.cuda.synchronize()
+    cc_kernels.launches = cc_kernels.launches_cluster = cc_kernels.launches_global = 0
+    for K in cc_kernels.launches_per_cluster:
+        cc_kernels.launches_per_cluster[K] = 0
+    nlm_kernels.launches = 0
+    qconv_kernels.launches = qconv_kernels.launches_wgmma = qconv_kernels.launches_sync = 0
+    qconv_kernels.launches_c3 = 0
+
+
+def _read_counts() -> dict:
+    """Every kernel wrapper's launch count, B1's also per route and per
+    cluster size, qconv's per kernel."""
+    from unet_tpu_torch.ops import cc_kernels, nlm_kernels, qconv_kernels
+
+    torch.cuda.synchronize()
+    return {"cc_propagate": cc_kernels.launches,
+            "cc_propagate_cluster": cc_kernels.launches_cluster,
+            "cc_propagate_global": cc_kernels.launches_global,
+            **{f"cc_propagate_cluster{K}": n for K, n in cc_kernels.launches_per_cluster.items()},
+            "nlm": nlm_kernels.launches, "qconv": qconv_kernels.launches,
+            "qconv_wgmma": qconv_kernels.launches_wgmma,
+            "qconv_sync": qconv_kernels.launches_sync, "qconv_c3": qconv_kernels.launches_c3}
 
 
 def _check_outputs(out, b, h, w, what):
@@ -597,6 +707,191 @@ def _check_outputs(out, b, h, w, what):
         v = getattr(out, name)
         if tuple(v.shape) != (b,) or int(v.min()) < 0 or int(v.max()) > h * w:
             raise AssertionError(f"{what}: {name} out of range: {v.tolist()}")
+
+
+GEOMETRY_PATHS = ("wrap_uniformity", "production", "three_class_full")
+GEOMETRY_ATOL = 1e-4   # float geometry fields, card vs CPU (tests/test_ops_clahe_geometry.py)
+
+
+def geometry_scenes(path: str, b: int, h: int, w: int, seed: int) -> np.ndarray:
+    """Frames for a geometry path: production's are two_stage's burr scenes,
+    the others' wrap scenes."""
+    if path == "production":
+        return synthetic_frames(b, h, w, seed=seed)
+    return wrap_scenes(b, h, w, seed=seed)
+
+
+def _compare_outputs(got, want, what) -> float:
+    """Card outputs against the CPU's: class map, px counts and every
+    integer field of diameters and defects equal, every float field within
+    GEOMETRY_ATOL. Returns the largest float difference."""
+    err = 0.0
+    for f in ("class_map", "cable_px", "tape_px", "burr_px"):
+        if not torch.equal(getattr(got, f).cpu(), getattr(want, f).cpu()):
+            raise AssertionError(f"{what}: {f} differs between the card and the CPU")
+    for part in ("diameters", "defects"):
+        g, w = getattr(got, part), getattr(want, part)
+        if (g is None) != (w is None):
+            raise AssertionError(f"{what}: {part} on one side only")
+        for f in (g._fields if g is not None else ()):
+            gv, wv = getattr(g, f).cpu(), getattr(w, f).cpu()
+            if wv.is_floating_point():
+                e = float((gv - wv).abs().max()) if wv.numel() else 0.0
+                err = max(err, e)
+                if not e <= GEOMETRY_ATOL:
+                    raise AssertionError(f"{what}: {part}.{f} card vs CPU {e} > {GEOMETRY_ATOL}")
+            elif not torch.equal(gv, wv):
+                raise AssertionError(f"{what}: {part}.{f} differs between the card and the CPU")
+    return err
+
+
+def _time_in_turns(steps, frames, reps: int):
+    """ms per batch of each step of `steps` ({name: step}) on the same
+    frames, timed in turns a, b, b, a (`_time_step`): {name: [ms, ms]}."""
+    runs = {name: [] for name in steps}
+    for name in list(steps) + list(steps)[::-1]:
+        runs[name].append(_time_step(steps[name], frames, reps))
+    return runs
+
+
+def phase_geometry_paths(cfgs, expect, H, W, device="cuda", reps=5):
+    """The geometry paths with the colour->class model at b=8 on HxW frames,
+    whose masks hold cable and tape: each step's B1 inputs recorded, one
+    batch driven with launch counts checked (`_drive`), then the same batch
+    on the CPU (plain versions): class maps, px counts and every field of
+    diameters and defects held card against CPU. Then the step is timed in
+    turns with the same config with geometry and defect analysis off, on
+    the same frames, so that the difference is the geometry's cost on
+    masks with cable and tape (and on the card, one step profiled).
+    Returns (B1 inputs, {path: counts}, {check: value}, {path: times})."""
+    from unet_tpu_torch.pipeline import stages
+
+    cc_rec, counts, checks, timings = {}, {}, {}, {}
+    for path in GEOMETRY_PATHS:
+        cfg = cfgs[path]
+        step = stages.build_step(ColourClassModel(), cfg, device=device)
+        frames8 = torch.from_numpy(geometry_scenes(path, 8, H, W, seed=0)).to(device)
+        cc_rec.update(_record_main_path_inputs(step, frames8, path)[0])
+        out, counts[path] = _drive(step, frames8, expect[path],
+                                   f"{path}, colour->class model, b=8, {W}x{H}")
+        _check_outputs(out, 8, H, W, f"{path} colour run")
+        d = out.diameters
+        if path == "production":
+            # two_stage's scenes: the tape band cuts the cable, so the
+            # diameters are only held against the CPU; the burr must exist
+            if int(out.burr_px.sum()) == 0:
+                raise AssertionError("production colour run found no burr")
+        elif not (bool((d.valid_rows >= cfg.geometry.min_valid_rows).all())
+                  and bool((d.dt_px > d.dc_px).all()) and bool((d.dc_px > 0).all())):
+            raise AssertionError(f"{path} colour run: no diameters ({d.dc_px.tolist()}, "
+                                 f"{d.dt_px.tolist()})")
+        t = time.time()
+        ref = stages.build_step(ColourClassModel(), cfg, device="cpu")(frames8.cpu())
+        cpu_s = time.time() - t
+        checks[f"{path}_float_max_abs_err_card_vs_cpu"] = _compare_outputs(out, ref, path)
+        _log(f"  {path}: card == CPU (CPU step {cpu_s:.1f} s): class_map, px counts, integer "
+             f"geometry; floats within {checks[f'{path}_float_max_abs_err_card_vs_cpu']:.3e}; "
+             f"dc_px {[round(v, 3) for v in d.dc_px.tolist()]}, dt_px "
+             f"{[round(v, 3) for v in d.dt_px.tolist()]}"
+             + (f", tape holes {out.defects.tape_num_holes.tolist()}, burr_px "
+                f"{out.burr_px.tolist()}" if out.defects is not None else ""))
+        bare = stages.build_step(ColourClassModel(), cfg.replace_in(
+            "geometry", enabled=False, analyze_defects=False), device=device)
+        runs = _time_in_turns({"with": step, "without": bare}, frames8, reps)
+        ms, bare_ms = (float(np.mean(runs[k])) for k in ("with", "without"))
+        timings[path] = {8: dict(ms=ms, ms_runs=runs["with"], frames_per_s=8 / ms * 1e3,
+                                 without_geometry_ms=bare_ms,
+                                 without_geometry_ms_runs=runs["without"],
+                                 geometry_ms=ms - bare_ms)}
+        _log(f"  {path} colour->class b=8: {ms:.3f} ms/batch {runs['with']}, without geometry "
+             f"{bare_ms:.3f} {runs['without']}: the geometry takes {ms - bare_ms:.3f} ms "
+             f"on masks with cable and tape")
+        if torch.device(device).type == "cuda":
+            _profile_step(step, frames8, ms, f"{path} colour->class b=8")
+    return cc_rec, counts, checks, timings
+
+
+class FrameListSource:
+    """A stream of prepared frames for MultiStreamServer: .frames() yields
+    (1-based frame id, frame)."""
+
+    def __init__(self, frames):
+        self.list = frames
+
+    def frames(self):
+        yield from enumerate(self.list, start=1)
+
+
+def phase_serve(model, cfg, H, W, what, streams=(8, 32), frames_per_serve=2400, repeats=3,
+                real_masks=False, device="cuda"):
+    """The wrap_uniformity server (`serve.MultiStreamServer`) on `device`
+    with `model` (`what` names it): for each stream count n,
+    frames_per_serve // n frames a stream drawn from 8 prepared wrap scenes
+    (made before the clock starts), one warm-up serve of one frame a
+    stream, then `repeats` timed serves, each with every launch count set
+    to 0 just before and read just after (B1: 2 launches a batch, both on a
+    cluster of 8). At 2400 frames a serve lasts several seconds on the
+    card. Each (stream, frame) must come back once, with finite diameters
+    (with `real_masks`, a cable and a wider tape on every frame), and the
+    first frames' results must equal the step's own on the same frames.
+    Returns {streams: record}, with frames/s of each repeat and their
+    median."""
+    from unet_tpu_torch.serve import MultiStreamServer
+
+    server = MultiStreamServer(model, cfg, device=device)
+    pool = wrap_scenes(8, H, W, seed=50)
+    out = {}
+    for n in streams:
+        per_stream = max(1, frames_per_serve // n)
+        lists = [[pool[(s + i) % 8] for i in range(per_stream)] for s in range(n)]
+        server.serve([FrameListSource(f[:1]) for f in lists], lambda r: None)
+        first = server.step(np.stack([f[0] for f in lists]))
+        runs, seconds = [], []
+        for _ in range(repeats):
+            results = []
+            _zero_counts()
+            t = time.perf_counter()
+            summary = server.serve([FrameListSource(f) for f in lists], results.append)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t)
+            got = _read_counts()
+            b = summary["batches"]
+            k = 2 * b if torch.device(device).type == "cuda" else 0   # no launch on the CPU
+            want = dict({c: 0 for c in got}, cc_propagate=k, cc_propagate_cluster=k,
+                        cc_propagate_cluster8=k)
+            if got != want:
+                raise AssertionError(f"wrap_uniformity server ({what}): expected launches "
+                                     f"{want}, got {got}")
+            keys = sorted((r.stream_id, r.frame_id) for r in results)
+            if keys != [(s, i + 1) for s in range(n) for i in range(per_stream)]:
+                raise AssertionError(f"wrap_uniformity server ({what}), {n} streams: frames "
+                                     f"lost or repeated")
+            if not all(np.isfinite([r.dc_px, r.dt_px]).all() for r in results):
+                raise AssertionError(f"wrap_uniformity server ({what}), {n} streams: "
+                                     f"non-finite diameters")
+            if real_masks and not all(0 < r.dc_px < r.dt_px for r in results):
+                raise AssertionError(f"wrap_uniformity server ({what}), {n} streams: a frame "
+                                     f"without a cable and a wider tape")
+            for r in results:
+                i = r.stream_id
+                if r.frame_id == 1 and (
+                        (r.cable_px, r.tape_px) != (int(first.cable_px[i]), int(first.tape_px[i]))
+                        or abs(r.dc_px - float(first.diameters.dc_px[i])) > GEOMETRY_ATOL
+                        or abs(r.dt_px - float(first.diameters.dt_px[i])) > GEOMETRY_ATOL):
+                    raise AssertionError(f"server result {r} differs from the step's")
+            runs.append(n * per_stream / seconds[-1])
+        _log(f"main path (wrap_uniformity server, {what}, {n} streams x {per_stream} frames, "
+             f"{b} batches, last of {repeats} serves): launches {got}")
+        fps = float(np.median(runs))
+        out[n] = dict(streams=n, frames=n * per_stream, batches=b, seconds_runs=seconds,
+                      frames_per_s=fps, frames_per_s_runs=runs, launches=got,
+                      dc_px_first=[r.dc_px for r in results if r.frame_id == 1][:4])
+        _log(f"wrap_uniformity server ({what}), {n} streams: {n * per_stream} frames in {b} "
+             f"batches, {repeats} serves of {[round(v, 3) for v in seconds]} s, "
+             f"{[round(v, 2) for v in runs]} frames/s, median {fps:.2f} (host clock, readers, "
+             f"batch assembly, host-to-device copies and the step; frames made beforehand); "
+             f"dc_px of the first frames {out[n]['dc_px_first']}")
+    return out
 
 
 def _conv_gflop(model: nn.Module, hw) -> float:
@@ -983,21 +1278,33 @@ def main() -> int:
         _log(f"  {name}: {path.name}\n" + "\n".join("    " + l for l in log.splitlines()))
 
     H, W = 448, 800
-    cfgs = {"two_stage": presets.two_stage(), "enhanced": presets.enhanced()}
-    # every B1 launch of both paths takes the cluster route
-    b1 = {"cc_propagate": 2, "cc_propagate_cluster": 2, "cc_propagate_global": 0}
+    cfgs = {"two_stage": presets.two_stage(), "enhanced": presets.enhanced(),
+            **{p: presets.get_preset(p) for p in GEOMETRY_PATHS}}
+    # every B1 launch of the paths takes the cluster route: burr crops and
+    # the wrap path's 256x256 labels on clusters of 8, 448x800 labels of 16
+    def b1(k8, k16=0):
+        return {"cc_propagate": k8 + k16, "cc_propagate_cluster": k8 + k16,
+                "cc_propagate_global": 0, "cc_propagate_cluster8": k8,
+                "cc_propagate_cluster16": k16}
     # int8: 17 convs on qconv's wgmma route, conv0_0.conv1 (Cin 3) on the c3 kernel
     q0 = {"qconv": 0, "qconv_wgmma": 0, "qconv_sync": 0, "qconv_c3": 0}
-    expect = {"two_stage": dict(b1, nlm=0, **q0), "enhanced": dict(b1, nlm=3, **q0),
-              "two_stage_bf16": dict(b1, nlm=0, **q0),
-              "two_stage_int8": dict(b1, nlm=0, qconv=18, qconv_wgmma=17, qconv_sync=0,
-                                     qconv_c3=1)}
+    expect = {"two_stage": dict(b1(2), nlm=0, **q0), "enhanced": dict(b1(2), nlm=3, **q0),
+              "two_stage_bf16": dict(b1(2), nlm=0, **q0),
+              "two_stage_int8": dict(b1(2), nlm=0, qconv=18, qconv_wgmma=17, qconv_sync=0,
+                                     qconv_c3=1),
+              # labels of the cable and tape: at the model's 256x256 (wrap),
+              # at 448x800 (three_class_full: 448 < its 512 model input)
+              "wrap_uniformity": dict(b1(2), nlm=0, **q0),
+              "three_class_full": dict(b1(0, 2), nlm=0, **q0),
+              # burr (2 on its crop) + cable and tape labels + defect analysis
+              # (holes, tape, cable count), all at 448x800
+              "production": dict(b1(2, 5), nlm=0, **q0)}
     scenes = {"two_stage": lambda b, seed: synthetic_frames(b, H, W, seed=seed),
               "enhanced": lambda b, seed: enhanced_scenes(b, H, W, seed=seed)}
 
     # -- the main paths: fabricated logits so cable, tape and burr candidates exist
     cc_rec, nlm_rec, counts = {}, {}, {}
-    for path, cfg in cfgs.items():
+    for path, cfg in ((p, cfgs[p]) for p in ("two_stage", "enhanced")):
         colour_cuda = stages.build_step(ColourClassModel(), cfg, device="cuda")
         frames8 = torch.from_numpy(scenes[path](8, 0)).cuda()
         rec = _record_main_path_inputs(colour_cuda, frames8, path)
@@ -1033,6 +1340,11 @@ def main() -> int:
                  f"{out.burr_px.tolist()}")
             if agree < 0.999:
                 raise AssertionError(f"{path} colour run: class maps agree {agree} < 0.999")
+
+    # -- the geometry paths: colour->class model, card against CPU
+    geo_rec, geo_counts, geo_checks, geo_timings = phase_geometry_paths(cfgs, expect, H, W)
+    cc_rec.update(geo_rec)
+    counts.update(geo_counts)
 
     # -- kernels against their plain versions, and their times
     cc_launch, cc_err = phase_cc(cc_rec)
@@ -1078,6 +1390,31 @@ def main() -> int:
             timings[path][b] = dict(ms=ms, frames_per_s=b / ms * 1e3, forward_ms=fwd_ms)
         _profile_step(step, frames, timings[path][32]["ms"], f"{path} NestedUNet")
 
+    # -- the geometry paths with NestedUNets at full width: production and
+    # three_class_full (3 classes, 512^2) and the wrap step (4 classes, 256^2)
+    # at b=8, then the wrap_uniformity server at 8 and 32 streams
+    model4 = seeded_nested_unet(num_classes=4)
+    for path, m in (("production", model), ("three_class_full", model),
+                    ("wrap_uniformity", model4)):
+        step = stages.build_step(m, cfgs[path], device="cuda")
+        frames = torch.from_numpy(geometry_scenes(path, 8, H, W, seed=10)).cuda()
+        outb, _ = _drive(step, frames, expect[path],
+                         f"{path}, NestedUNet {cfgs[path].preprocess.model_size[0]}^2, b=8")
+        _check_outputs(outb, 8, H, W, f"{path} NestedUNet b=8")
+        for f in outb.diameters + (outb.defects or ()):
+            if not bool(torch.isfinite(f.float()).all()):
+                raise AssertionError(f"{path} NestedUNet b=8: non-finite geometry")
+        ms = _time_step(step, frames)
+        timings[path] = {8: dict(ms=ms, frames_per_s=8 / ms * 1e3)}
+        _log(f"{path} NestedUNet fp32 b=8: {ms:.3f} ms/batch, {8 / ms * 1e3:.2f} frames/s "
+             f"(device-resident frames; dc_px {[round(v, 2) for v in outb.diameters.dc_px[:4].tolist()]}"
+             f"...) [{card}]")
+        _profile_step(step, frames, ms, f"{path} NestedUNet b=8")
+    serve = {"nested_unet": phase_serve(model4, cfgs["wrap_uniformity"], H, W,
+                                        "4-class NestedUNet"),
+             "colour_class": phase_serve(ColourClassModel(), cfgs["wrap_uniformity"], H, W,
+                                         "colour->class model", real_masks=True)}
+
     # -- the bf16 and int8 forwards of two_stage
     low, q_rec, int8_checks, upsample = phase_low_precision(cfgs["two_stage"], expect, counts,
                                                             gflop, card, H, W)
@@ -1113,7 +1450,8 @@ def main() -> int:
         entry("cc_propagate", "unet_tpu_torch/csrc/cc_propagate.cu",
               "unet_tpu/ops/cc_pallas.py:169", cc_launch, cc_err,
               {p: c["cc_propagate"] for p, c in counts.items()},
-              launches_per_route={p: {r: c[f"cc_propagate_{r}"] for r in ("cluster", "global")}
+              launches_per_route={p: {r: c[f"cc_propagate_{r}"]
+                                      for r in ("cluster", "global", "cluster8", "cluster16")}
                                   for p, c in counts.items()},
               trace=cc_trace, trace_global_by_batch=cc_batches),
         entry("nlm", "unet_tpu_torch/csrc/nlm.cu", "unet_tpu/ops/nlm_pallas.py:96",
@@ -1128,7 +1466,9 @@ def main() -> int:
               note="not a TPU kernel: the JAX package's _qconv + _requant run as XLA ops; "
                    + q_notes[r])
         for r in ("wgmma", "c3", "sync")
-    ], "slice_ms_per_batch": timings, "upsample_b8": upsample, "int8_checks": int8_checks,
+    ], "slice_ms_per_batch": timings, "geometry_colour_ms_per_batch": geo_timings,
+        "wrap_uniformity_server": serve,
+        "geometry_checks": geo_checks, "upsample_b8": upsample, "int8_checks": int8_checks,
         "card": card, "seconds": round(time.time() - t_start, 1)}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -12,9 +12,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import NLM_TOL, noisy_planes, seeded_nested_unet, stripe_masks, synthetic_frames
+from chip_smoke import (NLM_TOL, _serpentine, noisy_planes, seeded_nested_unet, stripe_masks,
+                        synthetic_frames, wrap_scenes)
 from unet_tpu_torch.models import quantized
-from unet_tpu_torch.ops import cc, cc_kernels, nlm_kernels, qconv_kernels
+from unet_tpu_torch.ops import cc, cc_kernels, geometry, nlm_kernels, qconv_kernels
 from unet_tpu_torch.pipeline import presets, stages
 
 
@@ -188,6 +189,73 @@ def test_cc_global_route_matches_the_cluster_route(card):
         kw = dict(pool_iters=pool, max_iters=iters[-1])
         assert torch.equal(cc_kernels.propagate_global(state0, fg, **kw),
                            cc_kernels.propagate_cluster(state0, fg, cluster=8, **kw))
+
+
+def _label_masks(shape, seed=0):
+    """Masks for B1 in label mode: noise, wrap scenes' class masks, and a
+    serpentine (one component threaded through every row band)."""
+    B, H, W = shape
+    rng = np.random.default_rng(seed)
+    scenes = wrap_scenes(B, H, W, seed=seed)
+    tape = (scenes[..., 2] > 150) & (scenes[..., 0] < 100)
+    return {"noise": rng.random(shape) < 0.55, "wrap tape": tape, "serpentine": _serpentine(*shape)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cluster", [((4, 256, 256), 8), ((2, 448, 800), 16)])
+@pytest.mark.parametrize("mask", ["noise", "wrap tape", "serpentine"])
+def test_cc_label_mode_matches_plain(card, shape, cluster, mask):
+    """B1 as connected_components runs it (C=1 label seeds, pool 16, max 64)
+    at the geometry presets' planes: 256x256 on a cluster of 8 (wrap), and
+    448x800 on a cluster of 16 (production, three_class_full), bit for bit
+    with the plain version, also truncated: the 448x800 serpentine needs
+    more than 64 iterations."""
+    fg = torch.from_numpy(_label_masks(shape)[mask]).to(card)
+    B, H, W = shape
+    state0 = cc._label_seed(H, W, card).expand(B, 1, H, W).contiguous()
+    assert cc_kernels.route(H, W) == ("cluster", cluster)
+    for max_iters in (1, 2, 64):
+        kw = dict(pool_iters=16, max_iters=max_iters)
+        before = dict(cc_kernels.launches_per_cluster)
+        got = cc_kernels.propagate(state0, fg, **kw)
+        assert cc_kernels.launches_per_cluster[cluster] == before[cluster] + 1
+        assert torch.equal(got, cc_kernels.propagate_plain(state0, fg, **kw)), kw
+    if mask == "serpentine" and H == 448:
+        longer = cc_kernels.propagate_plain(state0, fg, pool_iters=16, max_iters=256)
+        assert not torch.equal(got, longer), "the serpentine converged within 64 iterations"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 256, 256), (2, 448, 800)])
+def test_connected_components_and_geometry_card_equals_cpu(card, shape):
+    """The labelling, the component statistics and the geometry built on
+    them, card against CPU: integers equal, floats within 1e-4."""
+    masks = _label_masks(shape, seed=3)
+    for name, m in masks.items():
+        t = torch.from_numpy(m)
+        lab_cpu = cc.connected_components(t)
+        lab = cc.connected_components(t.to(card))
+        assert torch.equal(lab.cpu(), lab_cpu), name
+        for k in (1, 32):
+            got, want = cc.component_stats(lab, k), cc.component_stats(lab_cpu, k)
+            for f in got._fields:
+                assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), (name, k, f)
+        assert torch.equal(cc.largest_component(t.to(card), min_area=50).cpu(),
+                           cc.largest_component(t, min_area=50))
+        assert torch.equal(cc.count_components(t.to(card), max_components=32).cpu(),
+                           cc.count_components(t, max_components=32))
+    scenes = wrap_scenes(*shape, seed=5)
+    pred = np.where((scenes[..., 0] > 150) & (scenes[..., 2] > 150), 1,
+                    np.where((scenes[..., 2] > 150) & (scenes[..., 0] < 100), 2, 0))
+    pred = torch.from_numpy(pred.astype(np.uint8))
+    for fn in (geometry.diameter_metrics, geometry.analyze_defects):
+        got, want = fn(pred.to(card)), fn(pred)
+        for f in got._fields:
+            g, w = getattr(got, f).cpu(), getattr(want, f)
+            if w.is_floating_point():
+                torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
+            else:
+                assert torch.equal(g, w), f
 
 
 def _qconv_case(shape, cin, n, pair, signed, dtype, seed=0):
@@ -379,3 +447,66 @@ def test_bf16_and_int8_steps_on_the_card(card, route):
     want = stages.build_step(model, cfg, device="cpu")(frames)
     agree = float((got.class_map.cpu() == want.class_map).float().mean())
     assert agree >= 0.995, agree
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["wrap_uniformity", "production", "three_class_full"])
+def test_geometry_presets_on_the_card_equal_the_cpu(card, name):
+    """The geometry presets' steps with the colour->class model on 448x800
+    frames, card against CPU, with B1's launches per cluster size: wrap
+    labels at its model's 256x256 (cluster of 8), production (and its burr
+    crops, 8) and three_class_full at 448x800 (cluster of 16: their 512x512
+    model input is taller than the frame)."""
+    from chip_smoke import ColourClassModel
+
+    cfg = presets.get_preset(name)
+    frames = (synthetic_frames(2, 448, 800, seed=2) if name == "production"
+              else wrap_scenes(2, 448, 800, seed=2))
+    before = dict(cc_kernels.launches_per_cluster)
+    got = stages.build_step(ColourClassModel(), cfg, device=card)(frames)
+    torch.cuda.synchronize()
+    took = {K: cc_kernels.launches_per_cluster[K] - before[K] for K in before}
+    assert took == {"wrap_uniformity": {8: 2, 16: 0}, "production": {8: 2, 16: 5},
+                    "three_class_full": {8: 0, 16: 2}}[name]
+    want = stages.build_step(ColourClassModel(), cfg, device="cpu")(frames)
+    for f in ("class_map", "cable_px", "tape_px", "burr_px"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    for part in ("diameters", "defects"):
+        g, w = getattr(got, part), getattr(want, part)
+        assert (g is None) == (w is None)
+        for f in (g._fields if g is not None else ()):
+            gv, wv = getattr(g, f).cpu(), getattr(w, f)
+            if wv.is_floating_point():
+                torch.testing.assert_close(gv, wv, atol=1e-4, rtol=0)
+            else:
+                assert torch.equal(gv, wv), (part, f)
+    assert float(got.diameters.dc_px.min()) > 0
+
+
+@pytest.mark.cuda
+def test_multistream_server_on_the_card(card):
+    """The server on the card: each (stream, frame) once, with the result
+    of the card's step on that frame."""
+    from chip_smoke import ColourClassModel
+    from unet_tpu_torch.serve import MultiStreamServer
+
+    class Source:
+        def __init__(self, sid, n):
+            self.sid, self.n = sid, n
+
+        def frames(self):
+            for i in range(self.n):
+                yield i + 1, wrap_scenes(1, 448, 800, seed=10 * self.sid + i)[0]
+
+    cfg = presets.wrap_uniformity()
+    server = MultiStreamServer(ColourClassModel(), cfg, device=card)
+    results = []
+    server.serve([Source(0, 3), Source(1, 2), Source(2, 4)], results.append)
+    assert sorted((r.stream_id, r.frame_id) for r in results) == \
+        [(0, 1), (0, 2), (0, 3), (1, 1), (1, 2), (2, 1), (2, 2), (2, 3), (2, 4)]
+    step = stages.build_step(ColourClassModel(), cfg, device=card)
+    for r in results:
+        out = step(wrap_scenes(1, 448, 800, seed=10 * r.stream_id + r.frame_id - 1))
+        assert (r.cable_px, r.tape_px) == (int(out.cable_px[0]), int(out.tape_px[0]))
+        assert (r.dc_px, r.dt_px) == (float(out.diameters.dc_px[0]), float(out.diameters.dt_px[0]))
+        assert r.dt_px > r.dc_px > 0

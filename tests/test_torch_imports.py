@@ -22,7 +22,9 @@ def _modules():
 def test_every_module_imports_without_jax():
     mods = ["unet_tpu_torch"] + _modules() + ["chip_smoke"]
     for m in ("ops.cc_kernels", "ops.nlm_kernels", "ops.qconv_kernels", "ops.clahe",
-              "ops.frames", "models.fast_forward", "models.quantized"):
+              "ops.frames", "models.fast_forward", "models.quantized", "ops.geometry",
+              "inspect.window", "inspect.decision", "inspect.uniformity",
+              "serve.multistream"):
         assert f"unet_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

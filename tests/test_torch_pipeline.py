@@ -155,7 +155,7 @@ def test_enhanced_colour_model_matches_jax(seed, denoise):
 
 def test_unported_branches_raise():
     model = ColourClassModel()
-    for name in ("video_full", "wrap_uniformity", "robust", "spatial", "roi_first"):
+    for name in ("video_full", "strict", "robust", "spatial", "roi_first"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             stages.build_step(model, presets.get_preset(name), device="cpu")
     with pytest.raises(NotImplementedError, match="A9"):
@@ -256,6 +256,7 @@ def test_chip_smoke_low_precision_phases_run_on_the_cpu(monkeypatch):
     monkeypatch.setattr(cs, "_profile_step", lambda *a, **k: None)
     monkeypatch.setattr(cs, "_device_ops", lambda fn: 0)
     zero = {"cc_propagate": 0, "cc_propagate_cluster": 0, "cc_propagate_global": 0,
+            "cc_propagate_cluster8": 0, "cc_propagate_cluster16": 0,
             "nlm": 0, "qconv": 0, "qconv_wgmma": 0, "qconv_sync": 0, "qconv_c3": 0}
     expect = {"two_stage_bf16": zero, "two_stage_int8": zero}
     counts = {}

@@ -28,6 +28,7 @@ from unet_tpu_torch.models import quantized as tq
 from unet_tpu_torch import _build
 from unet_tpu_torch.models.convert import qparams_from_jax, state_dict_from_flax
 from unet_tpu_torch.ops import qconv_kernels
+from unet_tpu_torch.ops.image import recip32
 from unet_tpu_torch.pipeline import presets, stages
 
 _JDT = {torch.bfloat16: jnp.bfloat16, torch.float32: jnp.float32}
@@ -125,7 +126,7 @@ def test_division_by_a_constant_is_a_reciprocal_product(scale):
     share is printed)."""
     x = np.random.default_rng(3).random(200_000).astype(np.float32)
     jitted = np.asarray(jax.jit(lambda t: t / scale)(jnp.asarray(x)))
-    np.testing.assert_array_equal(x * np.float32(tq._recip32(scale)), jitted)
+    np.testing.assert_array_equal(x * np.float32(recip32(scale)), jitted)
     codes = np.asarray(jax.jit(lambda t: jnp.clip(jnp.round(t / scale), -127, 127)
                                .astype(jnp.int8))(jnp.asarray(x[:, None])))
     np.testing.assert_array_equal(tq.quantize_input(torch.from_numpy(x[:, None]), scale).numpy(),

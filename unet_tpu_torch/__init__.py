@@ -9,7 +9,10 @@ It runs the `two_stage` and `enhanced` presets end to end:
 `pipeline.stages.build_step(model, presets.two_stage(), device="cuda")`;
 `two_stage` also with the bf16 fast forward (`segment.fast_forward` and
 `NestedUNet(dtype=torch.bfloat16)`) and the int8 forward
-(`stages.calibrate_int8`).
+(`stages.calibrate_int8`). The geometry presets (`wrap_uniformity`,
+`wrap_7class`, `production`, `three_class_full`, `three_class_best`) add
+per-frame diameters and defect analysis; `serve.MultiStreamServer` serves
+several streams through one step, and `inspect` holds the host decisions.
 
 Layout conventions are the JAX package's at every public function, so the
 parity tests compare like with like:

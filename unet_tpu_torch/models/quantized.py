@@ -21,7 +21,7 @@ Scheme, as in the JAX package:
 Division by a constant. The JAX package runs these functions inside its
 jitted step, where XLA turns `x / c` for a compile-time constant c into
 `x * (1 / c)`, the reciprocal taken in float32 (eager JAX divides). The
-port computes that form (`_recip32`) wherever the JAX package divides by a
+port computes that form (`recip32`) wherever the JAX package divides by a
 Python float: the weights' `/ 127`, the requant's `s_w / out_scale` and
 `b / out_scale`, and the input's `x / scale`. True division differs from
 it in the last bit on part of the inputs (tests/test_torch_quantized.py
@@ -41,7 +41,6 @@ from __future__ import annotations
 
 from typing import Dict, Iterable, Mapping, NamedTuple, Optional, Tuple
 
-import numpy as np
 import torch
 
 from unet_tpu_torch.models.blocks import fp32_convs
@@ -49,7 +48,7 @@ from unet_tpu_torch.models.fast_forward import (BLOCK_NAMES, cat_nhwc, conv_nhwc
                                                 folded_layers, maxpool2_nhwc,
                                                 prepare_fast_params, run_topology, up2x_nhwc)
 from unet_tpu_torch.ops import qconv_kernels
-from unet_tpu_torch.ops.image import upsample2x_align_corners
+from unet_tpu_torch.ops.image import recip32, upsample2x_align_corners
 
 # quantize points: the model input + every post-ReLU tensor
 TAP_NAMES = ("input",) + tuple(f"{n}.relu{i}" for n in BLOCK_NAMES for i in (1, 2))
@@ -71,11 +70,6 @@ class QParams(NamedTuple):
     final_b: torch.Tensor       # (num_classes,), compute type
     scales: Dict[str, float]    # tap name -> activation scale (amax / 127)
     dtype: torch.dtype          # compute type of the requant, upsample and head
-
-
-def _recip32(c: float) -> float:
-    """1 / c in float32, as XLA folds a division by the constant c."""
-    return float(np.float32(1.0) / np.float32(c))
 
 
 # ---------------------------------------------------------------------------
@@ -125,7 +119,7 @@ def _quantize_weights(w: torch.Tensor, s_in: torch.Tensor
     per-output-channel s_w). s_in is folded in, so acc * s_w[c] + b
     dequantizes exactly."""
     w = w * s_in[None, :, None, None]
-    s_w = torch.clamp(torch.amax(torch.abs(w), dim=(1, 2, 3)), min=1e-12) * _recip32(127.0)
+    s_w = torch.clamp(torch.amax(torch.abs(w), dim=(1, 2, 3)), min=1e-12) * recip32(127.0)
     wq = torch.clamp(torch.round(w / s_w[:, None, None, None]), -127, 127)
     return wq.to(torch.int8), s_w
 
@@ -134,7 +128,7 @@ def _epilogue(s_w: torch.Tensor, b: torch.Tensor, out_scale: float,
               dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
     """The requant's per-channel multiplier and bias in the compute type
     (unet_tpu/models/quantized.py:216-217)."""
-    r = _recip32(out_scale)
+    r = recip32(out_scale)
     return (s_w * r).to(dtype), (b * r).to(dtype)
 
 
@@ -221,7 +215,7 @@ def _maxpool2_int8(x: torch.Tensor) -> torch.Tensor:
 def quantize_input(x: torch.Tensor, scale: float) -> torch.Tensor:
     """(B, H, W, 3) float in [0, 1] -> int8 codes, round half to even:
     x * (1 / scale) in float32, as the jitted JAX step computes x / scale."""
-    r = torch.tensor(_recip32(scale), dtype=torch.float32, device=x.device)
+    r = torch.tensor(recip32(scale), dtype=torch.float32, device=x.device)
     return torch.clamp(torch.round(x.to(torch.float32) * r), -127, 127).to(torch.int8)
 
 

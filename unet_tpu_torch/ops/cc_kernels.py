@@ -18,7 +18,8 @@ whose stripe fits a thread-block cluster's shared memory takes the cluster
 kernel (`propagate_cluster`), a larger one the global-memory kernel
 (`propagate_global`), as `cc_pallas.supported` splits the JAX package's
 routes. `launches` counts every kernel launch; `launches_cluster` and
-`launches_global` count each route's, and `launches` is their sum.
+`launches_global` count each route's, and `launches` is their sum;
+`launches_per_cluster` splits the cluster route's by cluster size.
 """
 from __future__ import annotations
 
@@ -41,6 +42,7 @@ SMEM_LIMIT = 232448              # opt-in shared memory per block on sm_90
 launches = 0
 launches_cluster = 0
 launches_global = 0
+launches_per_cluster = {K: 0 for K in CLUSTER_SIZES}
 
 _prepared: Set[Tuple[int, int, int, int]] = set()   # (device, H, W, K) checked
 _prepare_lock = threading.Lock()
@@ -171,6 +173,7 @@ def propagate_cluster(state0: torch.Tensor, fg: torch.Tensor, *, pool_iters: int
               B, C, H, W, cluster, pool_iters, max_iters, connectivity, stream)
     launches += 1
     launches_cluster += 1
+    launches_per_cluster[cluster] += 1
     return out
 
 

@@ -34,6 +34,13 @@ def _idx(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(device)
 
 
+def recip32(c: float) -> float:
+    """1 / c in float32. Inside a jitted JAX step XLA computes `x / c`, c a
+    Python constant, as `x * recip32(c)`; the port multiplies by this
+    wherever the JAX package divides by a constant."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
 # ---------------------------------------------------------------------------
 # resize
 # ---------------------------------------------------------------------------

@@ -16,6 +16,10 @@ The port runs the branches the `two_stage` and `enhanced` presets take:
   5. the `canny_band` or `multiscale` burr stage on a static crop around the
      ROI
   6. class map (0 bg / 1 cable / 2 tape / 3 burr) and pixel counts
+  7. geometry (`geometry.enabled`): per-frame diameters from the largest
+     cable and tape components, labelled at model resolution where that is
+     exact, else at frame resolution; with `geometry.analyze_defects` the
+     hole, component and defect-class analysis
 Every other branch raises NotImplementedError naming its ROADMAP item.
 
 Frames and masks keep the JAX package's layout, (B, H, W, 3) and (B, H, W);
@@ -23,7 +27,7 @@ the model sees NCHW.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Union
+from typing import Callable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -38,6 +42,7 @@ from unet_tpu_torch.ops import clahe as _clahe
 from unet_tpu_torch.ops import color as _color
 from unet_tpu_torch.ops import edges as _edges
 from unet_tpu_torch.ops import frames as _frames_ops
+from unet_tpu_torch.ops import geometry as _geo
 from unet_tpu_torch.ops import image as _image
 from unet_tpu_torch.ops import morph as _morph
 from unet_tpu_torch.pipeline.config import BurrCfg, PipelineCfg
@@ -49,6 +54,8 @@ class FrameOutputs(NamedTuple):
     cable_px: torch.Tensor   # (B,) int32
     tape_px: torch.Tensor    # (B,) int32
     burr_px: torch.Tensor    # (B,) int32
+    diameters: Optional[_geo.DiameterMetrics] = None  # geometry.enabled
+    defects: Optional[_geo.DefectAnalysis] = None     # geometry.analyze_defects
 
 
 def _unsupported(cfg: PipelineCfg) -> None:
@@ -64,7 +71,8 @@ def _unsupported(cfg: PipelineCfg) -> None:
         (seg.threshold_mode != "argmax",
          f"threshold_mode {seg.threshold_mode!r}: ROADMAP A11"),
         (post.enabled or post.close_ksize > 0, "postprocess: ROADMAP A11"),
-        (cfg.geometry.enabled, "geometry: ROADMAP A10"),
+        (seg.pred_full_from_thresholds,
+         "segment.pred_full_from_thresholds: ROADMAP A11"),
         (cfg.inspect.quality_stats or cfg.inspect.track_defects,
          "inspect stats: ROADMAP A11"),
         (cfg.burr.method not in _BURR_METHODS,
@@ -288,7 +296,8 @@ def run_pipeline(forward: Callable[[torch.Tensor], torch.Tensor], frames_bgr: to
     frames = preprocess_frames(frames_bgr, cfg)
     B, H, W = frames.shape[:3]
 
-    cable_m, tape_m = extract_masks(forward(model_input(frames, cfg)), cfg)
+    logits = forward(model_input(frames, cfg))
+    cable_m, tape_m = extract_masks(logits, cfg)
 
     cable = roi_limit(_image.resize_nearest(cable_m, (H, W), channel_dim=False),
                       cfg.roi, (H, W))
@@ -308,15 +317,65 @@ def run_pipeline(forward: Callable[[torch.Tensor], torch.Tensor], frames_bgr: to
         burr = torch.zeros_like(cable)
 
     class_map = torch.zeros((B, H, W), dtype=torch.uint8, device=cable.device)
-    class_map[cable] = 1
-    class_map[tape] = 2
-    class_map[burr] = 3
+    class_map = torch.where(cable, 1, class_map).to(torch.uint8)
+    class_map = torch.where(tape, 2, class_map).to(torch.uint8)
+    class_map = torch.where(burr, 3, class_map).to(torch.uint8)
     return FrameOutputs(
         class_map=class_map,
         cable_px=cable.sum(dim=(-2, -1), dtype=torch.int32),
         tape_px=tape.sum(dim=(-2, -1), dtype=torch.int32),
         burr_px=burr.sum(dim=(-2, -1), dtype=torch.int32),
+        diameters=_diameters(cable_m, tape_m, cable, tape, cfg),
+        defects=_defects(logits, cable, tape, cfg),
     )
+
+
+def _diameters(cable_m: torch.Tensor, tape_m: torch.Tensor, cable: torch.Tensor,
+               tape: torch.Tensor, cfg: PipelineCfg) -> Optional[_geo.DiameterMetrics]:
+    """The geometry stage (unet_tpu/pipeline/stages.py:629-645): diameters
+    from the largest cable and tape components of each frame, or None
+    without `geometry.enabled`. Where the model's masks reach the frame by a
+    nearest upscale alone (no ROI and H, W at least the model's h, w), the
+    components are labelled at model resolution, which is exact and
+    cheaper; otherwise at frame resolution, with a 50-pixel floor."""
+    g = cfg.geometry
+    if not g.enabled:
+        return None
+    H, W = cable.shape[-2:]
+    mh, mw = cable_m.shape[-2:]
+    pp, post = cfg.preprocess, cfg.postprocess
+    if (cfg.roi is None and not post.enabled and not pp.letterbox and not pp.dynamic_roi
+            and not post.close_ksize and H >= mh and W >= mw):
+        cable_d = _geo.largest_component_lowres(cable_m, (H, W))
+        tape_d = _geo.largest_component_lowres(tape_m, (H, W))
+    else:
+        cable_d = _cc.largest_component(cable, min_area=50)
+        tape_d = _cc.largest_component(tape, min_area=50)
+    return _geo.diameter_metrics_from_masks(cable_d, tape_d, mm_per_px=g.mm_per_px,
+                                            min_valid_rows=g.min_valid_rows,
+                                            smooth_ksize=g.smooth_ksize)
+
+
+def _defects(logits: torch.Tensor, cable: torch.Tensor, tape: torch.Tensor,
+             cfg: PipelineCfg) -> Optional[_geo.DefectAnalysis]:
+    """`geometry.analyze_defects` (unet_tpu/pipeline/stages.py:612-627,
+    647-660): the analysis of a frame-resolution map of cable (1) and tape
+    (2) from the final masks, over which a model of more than 3 classes
+    lays its defect classes (>= 3, argmax, through `segment.class_remap`)."""
+    g, seg = cfg.geometry, cfg.segment
+    if not g.analyze_defects:
+        return None
+    H, W = cable.shape[-2:]
+    amap = torch.where(tape, 2, torch.where(cable, 1, 0)).to(torch.uint8)
+    if seg.num_classes > 3:
+        pred = torch.argmax(logits, dim=1)
+        if seg.class_remap:
+            pred = torch.as_tensor(np.asarray(seg.class_remap, np.uint8), device=pred.device)[pred]
+        pred = _image.resize_nearest(pred.to(torch.uint8), (H, W), channel_dim=False)
+        amap = torch.where(pred >= 3, pred, amap)
+    return _geo.analyze_defects(amap, defect_classes=g.defect_classes,
+                                hole_min_size=g.hole_min_size,
+                                max_components=g.max_components)
 
 
 def build_step(model: nn.Module, cfg: PipelineCfg, device: Union[str, torch.device] = "cuda"
