@@ -75,6 +75,21 @@ Phases; any failure exits non-zero and prints no result line:
      mma.sync kernel in turns beside its bound, its plain version and
      torch._int_mm over an im2col of the same conv, with the sums over the
      wgmma route's 17 launches
+  7. the product loop (`phase_engine`): 96 synthetic 800x448 frames a
+     directory written as .bmp with numpy, run through the port's CLI
+     (`cli.main.main`): `infer --preset two_stage` with a seeded NestedUNet
+     saved as a .pth, bf16 fast forward and `--int8`, `infer --preset
+     wrap_uniformity`, `infer --preset production` (window events, JPEG
+     evidence) and `serve --preset wrap_7class` over two directories; each
+     run's launch counts per batch (B1 2 a two_stage batch, qconv 18 an int8
+     one) and every events.csv / results.csv row against `stages.build_step`
+     on the same frames; the synchronising calls left in a bf16 and an int8
+     two_stage step (`torch.cuda.set_sync_debug_mode("warn")`); the .bmp
+     decode by the port's numpy decoder and by cv2.imread; the engine's
+     frames/s, legs and batch latency at b=8 and b=32 over 2048 files, hard
+     links to 256 other frames (median of two calls after a warm-up) beside
+     the bare step's frames/s; the engine's launches per batch beside each
+     kernel's `launches`, which count the step paths above
 Then, on the last two lines, the kernels' JSON record and
 {"ok": true, "device": {...}}.
 
@@ -83,10 +98,14 @@ tests (tests/test_torch_pipeline.py and others) drive the same inputs.
 """
 from __future__ import annotations
 
+import csv
 import json
+import os
+import struct
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -168,6 +187,20 @@ def enhanced_scenes(batch: int, h: int, w: int, seed: int = 0,
     vertical cable at x 0.35-0.45 w, inside its ROI (x 200-600 of 800)."""
     f = synthetic_frames(batch, h, w, seed=seed, patch=patch, texture=False, noise=2.0)
     return np.ascontiguousarray(np.rot90(f, k=-1, axes=(1, 2)))
+
+
+def high_res_scenes(batch: int, seed: int = 0, patch: int = 16) -> np.ndarray:
+    """Input of the high_res_roi preset, (batch, 2048, 2448, 3) uint8 BGR:
+    the 448x800 scenes of `synthetic_frames` enlarged by nearest neighbour
+    to 2448x2048 and turned clockwise, so that the preset's counter-clockwise
+    turn and its resize to 800x448 give back about the original scene, with
+    the cable inside its ROI (x 250-550 of 800) and burr patches large
+    enough to survive the resize."""
+    f = synthetic_frames(batch, 448, 800, seed=seed, patch=patch)
+    rows = np.arange(2448) * 448 // 2448
+    cols = np.arange(2048) * 800 // 2048
+    big = f[:, rows][:, :, cols]
+    return np.ascontiguousarray(np.rot90(big, k=-1, axes=(1, 2)))
 
 
 def noisy_planes(shape, seed: int = 0) -> np.ndarray:
@@ -894,6 +927,343 @@ def phase_serve(model, cfg, H, W, what, streams=(8, 32), frames_per_serve=2400, 
     return out
 
 
+def write_bmp(path, img: np.ndarray) -> None:
+    """(H, W, 3) uint8 BGR as an uncompressed 24-bit BMP with numpy, byte for
+    byte what cv2.imwrite writes: bottom-up rows, each padded to 4 bytes."""
+    h, w = img.shape[:2]
+    stride = (3 * w + 3) // 4 * 4
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :3 * w] = img[::-1].reshape(h, 3 * w)
+    head = struct.pack("<2sIHHIIiiHHIIiiII", b"BM", 54 + rows.size, 0, 0, 54, 40, w, h,
+                       1, 24, 0, 0, 0, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(head)
+        f.write(rows.tobytes())
+
+
+def write_bmp_dir(path, frames: np.ndarray) -> str:
+    """`frames` as f_0000.bmp, f_0001.bmp, ... in the new directory `path`."""
+    path.mkdir(parents=True)
+    for i, f in enumerate(frames):
+        write_bmp(path / f"f_{i:04d}.bmp", f)
+    return str(path)
+
+
+# B1 and qconv launches per engine batch of each CLI path (chip_smoke.main's
+# expectations per step): two_stage's hysteresis and CC filter; int8's 18
+# convs; production's 2 + 5 labels; the wrap presets' cable and tape labels
+ENGINE_PER_BATCH = {"two_stage_bf16": dict(cc_propagate=2, qconv=0),
+                    "two_stage_int8": dict(cc_propagate=2, qconv=18),
+                    "wrap_uniformity": dict(cc_propagate=2, qconv=0),
+                    "production": dict(cc_propagate=7, qconv=0),
+                    "serve_wrap_7class": dict(cc_propagate=2, qconv=0),
+                    # ROADMAP A8: the burr crop of the turned frames; debug has no B1 site
+                    "high_res_roi": dict(cc_propagate=2, qconv=0),
+                    "debug": dict(cc_propagate=0, qconv=0)}
+
+
+def _events_rows(out, ids, n_valid, cfg):
+    """events.csv rows of one step's outputs, as the engine formats them."""
+    h, w = out.class_map.shape[-2:]
+    area = h * w
+    if cfg.roi is not None:
+        r = cfg.roi.scaled((w, h)) if cfg.roi.space != (w, h) else cfg.roi
+        area = (r.x2 - r.x1) * (r.y2 - r.y1)
+    cable, tape, burr = (getattr(out, f).cpu().numpy() for f in ("cable_px", "tape_px", "burr_px"))
+    return [[str(ids[i]), f"{cable[i] / area * 100:.2f}", f"{tape[i] / area * 100:.2f}",
+             f"{burr[i] / area * 100:.2f}", str(int(burr[i])),
+             "[BURR!]" if burr[i] > 0 else "[OK]"] for i in range(n_valid)]
+
+
+def _read_csv(path):
+    with open(path, newline="") as f:
+        return list(csv.reader(f))[1:]
+
+
+def _per_batch(got: dict, nb: int, what: str) -> dict:
+    """Launch counts of a run of `nb` batches, per batch; every count must be
+    an exact multiple of `nb`."""
+    if any(v % nb for v in got.values()):
+        raise AssertionError(f"{what}: launches {got} are not the same in each of {nb} batches")
+    return {c: v // nb for c, v in got.items()}
+
+
+def engine_run(path: str, src: str, pth: str, flags, out, device="cuda", batch: int = 8):
+    """`cli infer` (`cli.main.main`) over the image directory `src` with the
+    model `pth` and `flags`, counted alone: every launch count set to 0 as
+    `process_video` starts and read as it ends, B1 and qconv launched as
+    ENGINE_PER_BATCH[path] says for each batch (none on the CPU); every
+    events.csv row equal to the same frames through `stages.build_step` with
+    the engine's own model and config, in the engine's batches. Returns
+    (launch counts per batch, record with the whole run's counts)."""
+    from unet_tpu_torch.cli import main as cli
+    from unet_tpu_torch.io.video import ImageDirReader
+    from unet_tpu_torch.pipeline import engine as engine_mod
+    from unet_tpu_torch.pipeline import stages
+
+    seen = {}
+    real = engine_mod.InferenceEngine.process_video
+
+    def counted(self, *a, **kw):
+        _zero_counts()
+        summary = real(self, *a, **kw)
+        seen.update(engine=self, summary=summary, counts=_read_counts())
+        return summary
+
+    engine_mod.InferenceEngine.process_video = counted
+    try:
+        t = time.time()
+        rc = cli.main(["infer", "--video", src, "--output", str(out), "--model", pth,
+                       "--no-video", "--batch", str(batch), "--device", device] + list(flags))
+        seconds = time.time() - t
+    finally:
+        engine_mod.InferenceEngine.process_video = real
+    eng, summary, got = seen["engine"], seen["summary"], seen["counts"]
+    if rc != 0:
+        raise AssertionError(f"cli infer {path}: exit code {rc}")
+    nb = -(-summary["processed"] // batch)
+    cuda = torch.device(device).type == "cuda"
+    want = {c: n * nb if cuda else 0 for c, n in ENGINE_PER_BATCH[path].items()}
+    if {c: got[c] for c in want} != want:
+        raise AssertionError(f"cli infer {path}: launches {got}, expected {want} ({nb} batches)")
+    step = stages.build_step(eng.model, eng.cfg, device=device)
+    rows = []
+    for ids, frames, n_valid in ImageDirReader(src).batches(batch):
+        rows += _events_rows(step(frames), ids, n_valid, eng.cfg)
+    if _read_csv(out / "events.csv") != rows:
+        raise AssertionError(f"cli infer {path}: events.csv differs from the step's")
+    files = sorted(str(p.relative_to(out)) for p in out.rglob("*") if p.is_file())
+    if eng.ecfg.wrap_monitor_enabled and "wrap_uniformity.csv" not in files:
+        raise AssertionError(f"cli infer {path} wrote no wrap_uniformity.csv")
+    if eng.ecfg.window_enabled and summary["total_windows"] == 0:
+        raise AssertionError(f"cli infer {path} closed no window")
+    _log(f"main path (engine, cli infer {' '.join(flags)}, {nb} batches of {batch}): "
+         f"launches {got}; events.csv = the step's on {summary['processed']} frames; "
+         f"{len(files)} files; {seconds:.1f} s with start-up, engine {summary['fps']} frames/s")
+    return _per_batch(got, nb, f"cli infer {path}"), dict(
+        seconds=seconds, launches=got, batches=nb, files=len(files),
+        **{k: summary[k] for k in ("processed", "fps", "legs_ms_per_frame", "batch_latency_ms",
+                                   "burr_frames", "total_windows", "ng_windows")})
+
+
+def phase_engine(H=448, W=800, n_frames=96, timing_frames=2048, timing_distinct=256,
+                 batches=(8, 32), timed_calls=2, model_size=None, device="cuda"):
+    """The product loop through the port's CLI (`cli.main.main`) on `device`,
+    on `n_frames` HxW frames written as .bmp files with numpy: `infer
+    --preset two_stage` with a seeded 3-class NestedUNet saved as a .pth, in
+    bf16 (the BN-folded fast forward) and with `--int8`; `infer --preset
+    wrap_uniformity` (4 classes) on wrap scenes; `infer --preset production`
+    (window events and NG evidence, JPEGs through OpenCV); and `serve
+    --preset wrap_7class` (7 classes) over both directories. Each engine run
+    is counted alone (every launch count set to 0 as `process_video` starts,
+    read as it ends) and must launch B1 and qconv as ENGINE_PER_BATCH says
+    for each batch; every events.csv and results.csv row must equal the same
+    frames through `stages.build_step` with the engine's own model and
+    config. Then the synchronising calls left in one bf16 and one int8
+    two_stage step (`torch.cuda.set_sync_debug_mode`). Then, over a directory
+    of `timing_frames` files, hard links to `timing_distinct` other frames in
+    turn: the .bmp decode by `read_bmp` and by `cv2.imread`, and the engine's
+    frames/s, legs and batch latency for bf16 and int8 at each batch size
+    (one warm-up call, then the median of `timed_calls`; p99 only where a
+    call has 100 batches or more), beside the bare step on the same frames
+    already on the device. Returns ({path: launch counts per batch}, record)."""
+    import tempfile
+
+    from unet_tpu_torch.cli import main as cli
+    from unet_tpu_torch.io.video import ImageDirReader
+    from unet_tpu_torch.pipeline import presets, stages
+
+    cuda = torch.device(device).type == "cuda"
+    size = ["--model-size", str(model_size)] if model_size else []
+    record, counts = {"runs": {}}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_engine_") as tmp:
+        tmp = Path(tmp)
+        t = time.time()
+        two = write_bmp_dir(tmp / "two_stage", synthetic_frames(n_frames, H, W, seed=0))
+        wrap = write_bmp_dir(tmp / "wrap", wrap_scenes(n_frames, H, W, seed=0))
+        pth = {}
+        for k in (3, 4, 7):
+            pth[k] = str(tmp / f"nested_unet_{k}.pth")
+            torch.save(seeded_nested_unet(num_classes=k).state_dict(), pth[k])
+        _log(f"engine: {2 * n_frames} {W}x{H} .bmp frames and 3 seeded .pth written in "
+             f"{time.time() - t:.1f} s")
+
+        for path, (src, k, flags) in {
+                "two_stage_bf16": (two, 3, ["--preset", "two_stage"]),
+                "two_stage_int8": (two, 3, ["--preset", "two_stage", "--int8"]),
+                "wrap_uniformity": (wrap, 4, ["--preset", "wrap_uniformity"]),
+                "production": (two, 3, ["--preset", "production"])}.items():
+            counts[f"engine_{path}"], record["runs"][path] = engine_run(
+                path, src, pth[k], flags + size, tmp / f"out_{path}", device)
+
+        out = tmp / "out_serve"
+        _zero_counts()
+        rc = cli.main(["serve", "--videos", two, wrap, "--output", str(out), "--preset",
+                       "wrap_7class", "--model", pth[7], "--device", device] + size)
+        got = _read_counts()
+        summary = json.loads((out / "serve_summary.json").read_text())
+        want = {c: n * summary["batches"] if cuda else 0
+                for c, n in ENGINE_PER_BATCH["serve_wrap_7class"].items()}
+        if rc != 0 or {c: got[c] for c in want} != want:
+            raise AssertionError(f"cli serve: exit code {rc}, launches {got}, expected {want}")
+        counts["engine_serve_wrap_7class"] = _per_batch(got, summary["batches"], "cli serve")
+        model7, _, _ = cli.load_model(pth[7], "nested_unet", "bfloat16", 7)
+        cfg7 = presets.get_preset("wrap_7class").replace_in("segment", fast_forward=True)
+        if model_size:
+            cfg7 = cfg7.replace_in("preprocess", model_size=(model_size, model_size))
+        step = stages.build_step(model7, cfg7, device=device)
+        srcs = [list(ImageDirReader(d).frames()) for d in (two, wrap)]
+        want_rows = [[], []]
+        for (fid, a), (_, b) in zip(*srcs):
+            o = step(np.stack([a, b]))
+            for s in range(2):
+                want_rows[s].append([str(fid)] + [str(int(getattr(o, f)[s])) for f in
+                                                  ("cable_px", "tape_px", "burr_px")]
+                                    + [f"{float(o.diameters.dc_px[s]):.2f}",
+                                       f"{float(o.diameters.dt_px[s]):.2f}"])
+        for s, name in enumerate(("two_stage", "wrap")):
+            if _read_csv(out / f"stream_{s:02d}_{name}" / "results.csv") != want_rows[s]:
+                raise AssertionError(f"cli serve: results.csv of stream {s} differs from the "
+                                     f"step's")
+        record["runs"]["serve_wrap_7class"] = dict(launches=got, **summary)
+        _log(f"main path (engine, cli serve --preset wrap_7class, 2 streams, "
+             f"{summary['batches']} batches): launches {got}; results.csv = the step's; "
+             f"{summary['fps']} frames/s")
+
+        # the synchronising calls left in the step; a .item() on its output
+        # is the control that the detector sees one
+        record["sync_debug"] = {}
+        frames8 = torch.from_numpy(synthetic_frames(8, H, W, seed=3)).to(device)
+        model = seeded_nested_unet(dtype=torch.bfloat16)
+        base = presets.two_stage().replace_in("segment", fast_forward=True)
+        if model_size:
+            base = base.replace_in("preprocess", model_size=(model_size, model_size))
+        qcfg = stages.calibrate_int8(model, base, [frames8.cpu().numpy()], device=device)
+        for path, cfg in (("two_stage_bf16", base), ("two_stage_int8", qcfg)):
+            step = stages.build_step(model, cfg, device=device)
+            step(frames8)
+            if cuda:
+                sites = _sync_sites(lambda: step(frames8))
+                control = _sync_sites(lambda: step(frames8).burr_px.sum().item())
+                if sum(control.values()) <= sum(sites.values()):
+                    raise AssertionError(f"sync debug mode did not see the control's .item(): "
+                                         f"{control}")
+                record["sync_debug"][path] = sites
+                _log(f"sync debug ({path} step, b=8): {sum(sites.values())} synchronising "
+                     f"calls" + "".join(f"\n  {n} x {k}" for k, n in sites.items())
+                     + f"; the step and a .item() on its output (control): "
+                     f"{sum(control.values())}")
+
+        # the engine's throughput against the bare step, on other frames
+        distinct = write_bmp_dir(tmp / "timing_distinct",
+                                 synthetic_frames(timing_distinct, H, W, seed=1000))
+        files = ImageDirReader(distinct).paths
+        timing = tmp / "timing"
+        timing.mkdir()
+        for i in range(timing_frames):
+            os.link(files[i % len(files)], timing / f"f_{i:05d}.bmp")
+        timing = str(timing)
+        record["decode_ms_per_frame"] = _decode_ms(files)
+        _log(f"decode of {len(files)} {W}x{H} .bmp files, ms a frame (median of 3 passes): "
+             f"{record['decode_ms_per_frame']}")
+        frames_dev = torch.from_numpy(np.stack([f for _, f in ImageDirReader(distinct).frames()])
+                                      ).to(device)
+        passes = timing_frames // timing_distinct
+        record["timing"] = {}
+        for path, flags in (("two_stage_bf16", []), ("two_stage_int8", ["--int8"])):
+            args = cli.build_parser().parse_args(
+                ["infer", "--video", timing, "--output", str(tmp / f"time_{path}"), "--model",
+                 pth[3], "--no-video", "--device", device, "--print-interval", "100000"]
+                + flags + size)
+            eng = cli.infer_engine(args)
+            if flags and not eng.cfg.segment.int8_scales:
+                raise AssertionError("engine timing: --int8 fell back to the bf16 forward")
+            step = stages.build_step(eng.model, eng.cfg, device=device)
+            for b in batches:
+                eng.ecfg = eng.ecfg.merged(batch=b)
+                eng.process_video(timing)     # warm-up
+                calls = [eng.process_video(timing) for _ in range(timed_calls)]
+                med = lambda f: float(np.median([f(c) for c in calls]))
+                rec = dict(
+                    engine_fps=med(lambda c: c["fps"]),
+                    engine_fps_calls=[c["fps"] for c in calls],
+                    legs_ms_per_frame={k: med(lambda c: c["legs_ms_per_frame"][k])
+                                       for k in calls[0]["legs_ms_per_frame"]},
+                    batches=-(-timing_frames // b),
+                    batch_latency_ms={k: med(lambda c: c["batch_latency_ms"][k])
+                                      if k != "p99" or timing_frames >= 100 * b else None
+                                      for k in ("p50", "p99", "max")},
+                    bare_step_fps=_bare_step_fps(step, frames_dev, b, passes))
+                record["timing"][f"{path}_b{b}"] = rec
+                _log(f"engine {path} b={b}, {timing_frames} {W}x{H} .bmp frames "
+                     f"({rec['batches']} batches): "
+                     f"{rec['engine_fps']:.2f} frames/s (median of {rec['engine_fps_calls']}), "
+                     f"legs ms a frame {rec['legs_ms_per_frame']}, batch latency ms "
+                     f"{rec['batch_latency_ms']} (medians); the bare step on the same frames "
+                     f"on the device {rec['bare_step_fps']:.2f} frames/s")
+    return counts, record
+
+
+def _sync_sites(fn) -> dict:
+    """{"file:line: message": count} of the synchronising CUDA calls that
+    `fn` makes, as torch.cuda.set_sync_debug_mode("warn") reports them
+    (without its own note that the mode is a prototype)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    sites = {}
+    for w in caught:
+        if "prototype" in str(w.message):
+            continue
+        key = f"{Path(w.filename).name}:{w.lineno}: {str(w.message)[:80]}"
+        sites[key] = sites.get(key, 0) + 1
+    return sites
+
+
+def _bare_step_fps(step, frames_dev, b: int, passes: int = 1) -> float:
+    """frames/s of `step` over `passes` passes of device-resident frames in
+    batches of `b` (the last one of a pass short), after one warm-up batch;
+    host clock to a synchronize."""
+    step(frames_dev[:b])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(passes):
+        for i in range(0, len(frames_dev), b):
+            step(frames_dev[i:i + b])
+    torch.cuda.synchronize()
+    return passes * len(frames_dev) / (time.perf_counter() - t)
+
+
+def _decode_ms(files) -> dict:
+    """ms a frame to decode `files` by the port's numpy decoder and by
+    cv2.imread, each the median of 3 passes after a warm-up pass, the two
+    alternating; the two must give the same frames."""
+    import cv2
+
+    from unet_tpu_torch.io.video import read_bmp
+
+    for f in files[:4]:
+        if not np.array_equal(read_bmp(f), cv2.imread(str(f), cv2.IMREAD_COLOR)):
+            raise AssertionError(f"read_bmp and cv2.imread differ on {f}")
+    ways = {"read_bmp": read_bmp, "cv2.imread": lambda f: cv2.imread(str(f), cv2.IMREAD_COLOR)}
+    runs = {k: [] for k in ways}
+    for rep in range(4):
+        for k, fn in ways.items():
+            t = time.perf_counter()
+            for f in files:
+                fn(f)
+            if rep:
+                runs[k].append((time.perf_counter() - t) * 1e3 / len(files))
+    return {k: float(np.median(v)) for k, v in runs.items()}
+
+
 def _conv_gflop(model: nn.Module, hw) -> float:
     """GFLOP (2 x multiply-adds) of every convolution in one frame's forward
     at `hw`, counted from the layers' output shapes."""
@@ -1421,6 +1791,9 @@ def main() -> int:
     timings.update(low)
     q_launch, q_err = phase_qconv(q_rec)
 
+    # -- the product loop: the port's CLI over .bmp directories
+    engine_counts, engine = phase_engine()
+
     # the mma.sync kernel has no main-path launch (conv0_0.conv1 takes the c3
     # kernel): its entry holds its time forced at that site, the c3 kernel's
     # yardstick
@@ -1437,11 +1810,15 @@ def main() -> int:
     def entry(name, source, replaces, per_launch, max_err, by_path, library_ms=None,
               **extra):
         # ms / plain_ms / bound_ms: every counted main-path launch of one b=8
-        # batch per path, summed, to match `launches`
+        # batch per path, summed, to match `launches`; the engine's runs
+        # beside them, per batch of each run (their whole-run counts are
+        # under record["engine"]["runs"])
         keys = ("ms", "plain_ms", "bound_ms") + (("global_ms",) if "global_ms" in per_launch[0] else ())
         total = {k: sum(p[k] for p in per_launch) for k in keys}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(by_path.values()), "launches_per_path": by_path,
+                "engine_launches_per_batch": {p: c[name] for p, c in engine_counts.items()
+                                              if c[name]},
                 "max_abs_err": max_err, **total,
                 "bound_by": max(per_launch, key=lambda p: p["bound_ms"])["bound_by"],
                 "library_ms": library_ms, "per_launch": per_launch, **extra}
@@ -1469,6 +1846,7 @@ def main() -> int:
     ], "slice_ms_per_batch": timings, "geometry_colour_ms_per_batch": geo_timings,
         "wrap_uniformity_server": serve,
         "geometry_checks": geo_checks, "upsample_b8": upsample, "int8_checks": int8_checks,
+        "engine": engine,
         "card": card, "seconds": round(time.time() - t_start, 1)}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -15,8 +15,9 @@ ROOT = Path(__file__).resolve().parent.parent
 
 
 def _modules():
+    """Every module of the package but `cli.__main__`, which runs the CLI."""
     return sorted(m.name for m in pkgutil.walk_packages(
-        unet_tpu_torch.__path__, prefix="unet_tpu_torch."))
+        unet_tpu_torch.__path__, prefix="unet_tpu_torch.") if not m.name.endswith(".__main__"))
 
 
 def test_every_module_imports_without_jax():
@@ -24,7 +25,9 @@ def test_every_module_imports_without_jax():
     for m in ("ops.cc_kernels", "ops.nlm_kernels", "ops.qconv_kernels", "ops.clahe",
               "ops.frames", "models.fast_forward", "models.quantized", "ops.geometry",
               "inspect.window", "inspect.decision", "inspect.uniformity",
-              "serve.multistream"):
+              "serve.multistream", "io.video", "io.camera", "events.emitters",
+              "inspect.detectors", "pipeline.visualize", "pipeline.engine", "serve.service",
+              "serve.inspect_tool", "cli.main"):
         assert f"unet_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -33,6 +36,9 @@ def test_every_module_imports_without_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'unet_tpu'))\n"
         "assert not bad, bad\n"
+        "lazy = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('cv2', 'yaml', 'paho', 'harvesters'))\n"
+        "assert not lazy, lazy\n"
         "from unet_tpu_torch import _build\n"
         "assert not _build._libs, 'importing built a kernel'\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=300)

@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from chip_smoke import ColourClassModel, enhanced_scenes, synthetic_frames
+from chip_smoke import ColourClassModel, enhanced_scenes, high_res_scenes, synthetic_frames
 from unet_tpu.models import NestedUNet as JNestedUNet
 from unet_tpu.pipeline import presets as jpresets
 from unet_tpu.pipeline import stages as jstages
@@ -283,3 +283,35 @@ def test_build_step_cuda_without_card_raises():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         stages.build_step(ColourClassModel(), presets.two_stage())
+
+
+def test_high_res_roi_colour_model_bit_identical():
+    """high_res_roi (ROADMAP A8): two 2048x2448 frames, turned and resized
+    to 800x448, the burr stage on its 448x384 crop; class map and px counts
+    equal to the jitted JAX step's, with burr found."""
+    frames = high_res_scenes(2, seed=1, patch=20)
+    assert frames.shape == (2, 2048, 2448, 3)
+    jcfg = jpresets.high_res_roi().replace_in("preprocess", model_size=(64, 64))
+    cfg = presets.high_res_roi().replace_in("preprocess", model_size=(64, 64))
+    want = jstages.build_step(_JColourClassModel(), jcfg)({}, jnp.asarray(frames))
+    got = stages.build_step(ColourClassModel(), cfg, device="cpu")(frames)
+    _assert_same(got, want)
+    assert got.class_map.shape == (2, 448, 800)
+    assert got.cable_px.min() > 0 and got.tape_px.min() > 0
+    assert got.burr_px.min() > 0, "no burr survived the resize: stage 2 untested"
+    assert stages.roi_crop_box(cfg, (448, 800)) == (0, 448, 215, 599)   # 448x384
+
+
+def test_debug_fixed_7_class_logits_bit_identical():
+    """debug (ROADMAP A8): plain argmax of a 7-class model, no ROI, no burr
+    stage; fixed logits with ties between classes."""
+    rng = np.random.default_rng(8)
+    logits = rng.integers(0, 4, (2, 64, 64, 7)).astype(np.float32)   # many ties
+    frames = synthetic_frames(2, 96, 160, seed=8)
+    jcfg = jpresets.debug().replace_in("preprocess", model_size=(64, 64))
+    cfg = presets.debug().replace_in("preprocess", model_size=(64, 64))
+    want = jstages.build_step(_JFixedLogits(logits), jcfg)({}, jnp.asarray(frames))
+    got = stages.build_step(_FixedLogits(logits.transpose(0, 3, 1, 2)), cfg,
+                            device="cpu")(frames)
+    _assert_same(got, want)
+    assert got.cable_px.min() > 0 and got.tape_px.min() > 0 and int(got.burr_px.sum()) == 0

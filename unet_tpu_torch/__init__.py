@@ -13,6 +13,10 @@ It runs the `two_stage` and `enhanced` presets end to end:
 `wrap_7class`, `production`, `three_class_full`, `three_class_best`) add
 per-frame diameters and defect analysis; `serve.MultiStreamServer` serves
 several streams through one step, and `inspect` holds the host decisions.
+`high_res_roi` and `debug` run as well. Users run it from the command
+line, `python -m unet_tpu_torch.cli infer|serve|inspect`, through
+`pipeline.InferenceEngine` (video or image-dir sources, event files,
+overlays).
 
 Layout conventions are the JAX package's at every public function, so the
 parity tests compare like with like:

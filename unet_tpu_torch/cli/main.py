@@ -1,0 +1,306 @@
+"""Command-line interface of the port (counterpart of unet_tpu/cli/main.py).
+
+  infer     video or image-dir inference with a preset (pipeline.presets)
+  serve     N videos/cameras through one batched step (serve.service)
+  inspect   YAML-configured window inspection (serve.inspect_tool)
+
+`train`, `export`, `evaluate`, `tools` and `bench` are not ported yet; each
+names the ROADMAP item that ports it and exits non-zero.
+
+Every command runs on the card (`--device cuda`, the default) unless asked
+for the CPU. Run `python -m unet_tpu_torch.cli <cmd> --help`.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import sys
+from pathlib import Path
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_NOT_PORTED = {"train": "ROADMAP A14 (training)",
+               "evaluate": "ROADMAP A14 (dataset evaluation)",
+               "tools": "ROADMAP A14 (tools/)",
+               "export": "ROADMAP A15 (export)",
+               "bench": "ROADMAP A5 (the port bench)"}
+N_CALIB = 16
+
+
+def _build_model(num_classes: int, arch: str, dtype_str: str,
+                 deep_supervision: bool = True) -> nn.Module:
+    """The model of `arch` with compute type `dtype_str`. The port has the
+    custom-encoder NestedUNet only."""
+    from unet_tpu_torch.models import NestedUNet
+
+    if arch != "nested_unet":
+        raise SystemExit(f"arch {arch!r}: the port has only the custom-encoder NestedUNet; "
+                         f"other models are ROADMAP A13")
+    return NestedUNet(num_classes=num_classes, deep_supervision=deep_supervision,
+                      dtype=_DTYPES[dtype_str])
+
+
+def _seed_weights(model: nn.Module, seed: int = 0) -> nn.Module:
+    """PyTorch's default initialisation of every conv, drawn from a
+    torch.Generator seeded with `seed` (BatchNorm keeps its defaults)."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.Conv2d):
+                nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5), generator=g)
+                if m.bias is not None:
+                    bound = 1.0 / math.sqrt(m.weight[0].numel())
+                    nn.init.uniform_(m.bias, -bound, bound, generator=g)
+    return model
+
+
+def load_model(model_path: Optional[str], arch: str, dtype_str: str, fallback_classes: int):
+    """(model in eval mode, num_classes, arch) from a reference .pth (its
+    family and class count read from its keys, loaded strictly), or, without
+    a path, seeded random weights (smoke mode)."""
+    from unet_tpu_torch.models import convert
+
+    if model_path:
+        if Path(model_path).is_dir():
+            raise SystemExit(f"--model {model_path}: orbax checkpoint directories are "
+                             f"ROADMAP A15; pass a reference .pth")
+        sd = convert.load_pth(model_path)
+        kind = convert.detect_model_kind(sd)
+        if kind != "nested_unet":
+            raise SystemExit(f"--model {model_path}: a {kind} checkpoint; the port has only "
+                             f"the custom-encoder NestedUNet, other models are ROADMAP A13")
+        num_classes = convert.infer_num_classes(sd)
+        model = _build_model(num_classes, arch, dtype_str,
+                             deep_supervision="ds1_3.weight" in sd)
+        model.load_state_dict(sd, strict=True)
+        return model.eval(), num_classes, arch
+    print("warning: no --model given; using random weights (smoke mode)")
+    model = _seed_weights(_build_model(fallback_classes, arch, dtype_str))
+    return model.eval(), fallback_classes, arch
+
+
+def int8_cfg(model: nn.Module, cfg, video: str, device: str):
+    """The int8 config of `cfg`, calibrated on frames strided across the
+    whole video or directory (an unrepresentative intro would give tiny
+    scales and saturate later activations), or `cfg` itself when the int8
+    step agrees with it on less than 0.995 of the pixels of held-out frames.
+    Even-strided frames calibrate, odd-strided ones feed the agreement gate,
+    so that on a short source the gate never scores the frames it
+    calibrated on."""
+    from unet_tpu_torch.io.video import ImageDirReader, VideoReader
+    from unet_tpu_torch.pipeline import stages
+
+    if Path(video).is_dir():
+        src = ImageDirReader(video)
+        stride = max(1, len(src.paths) // N_CALIB)
+        src.paths = src.paths[::stride][:N_CALIB]
+    else:
+        probe = VideoReader(video)
+        total = probe.meta.total_frames
+        probe.cap.release()
+        stride = max(1, total // N_CALIB)
+        src = VideoReader(video, stride, N_CALIB)
+    try:
+        batch = next(iter(src.batches(N_CALIB)), None)
+    finally:
+        cap = getattr(src, "cap", None)
+        if cap is not None:
+            cap.release()
+    if batch is None:
+        raise SystemExit(f"--int8: no frames decodable from {video}")
+    _, frames, n_valid = batch
+    valid = frames[:max(n_valid, 1)]
+    calib = valid[0::2] if len(valid) >= 2 else valid
+    holdout = valid[1::2][:8] if len(valid) >= 2 else valid
+    qcfg = stages.calibrate_int8(model, cfg, [calib], device=device)
+    print(f"int8: calibrated on {len(calib)} frames "
+          f"(stride {stride} across the video, "
+          f"{len(holdout)} held out for the agreement gate)")
+    agree = stages.validate_int8(model, cfg, qcfg, holdout, device=device)
+    if agree < 0.995:
+        print(f"int8: class-map agreement {agree:.4f} < 0.995 on this "
+              f"video; falling back to the bf16 forward")
+        return cfg
+    print(f"int8: class-map agreement {agree:.4f} (gate 0.995)")
+    return qcfg
+
+
+def infer_engine(args):
+    """The InferenceEngine that `infer` runs with `args`."""
+    from unet_tpu_torch.inspect import ThresholdConfig
+    from unet_tpu_torch.pipeline import EngineConfig, InferenceEngine, engine_hints, get_preset
+
+    if args.config:
+        raise SystemExit("--config: pipeline YAML files (core/config.load_pipeline_yaml) are "
+                         "ROADMAP A12; use --preset")
+    hints = engine_hints(args.preset)
+    if hints.get("quality_enabled") or hints.get("tracker_enabled"):
+        raise SystemExit(f"--preset {args.preset}: the frame quality gate and the defect "
+                         f"tracker are ROADMAP A11")
+    preset_kwargs = {}
+    if args.preset == "two_stage":
+        preset_kwargs = dict(sensitivity=args.burr_sensitivity, rotate=args.rotate,
+                             normalize=args.normalize_resolution)
+    cfg = get_preset(args.preset, **preset_kwargs)
+    if args.model_size:
+        cfg = cfg.replace_in("preprocess", model_size=(args.model_size, args.model_size))
+
+    model, num_classes, arch = load_model(args.model, args.arch, args.dtype,
+                                          cfg.segment.num_classes)
+    if num_classes != cfg.segment.num_classes:
+        print(f"note: checkpoint has {num_classes} classes; "
+              f"overriding preset's {cfg.segment.num_classes}")
+        cfg = cfg.replace_in("segment", num_classes=num_classes)
+
+    # the BN-folded forward: on for the custom-encoder NestedUNet unless
+    # the user turns it off
+    use_fast = {"auto": arch == "nested_unet", "on": True, "off": False}[args.fast]
+    if use_fast:
+        cfg = cfg.replace_in("segment", fast_forward=True)
+    if args.int8:
+        cfg = int8_cfg(model, cfg, args.video, args.device)
+
+    if args.window is not None:
+        hints["window_enabled"] = bool(args.window)
+    if hints.get("window_enabled") and not cfg.geometry.enabled:
+        cfg = cfg.replace_in("geometry", enabled=True)
+    ecfg = EngineConfig(
+        batch=args.batch, frame_stride=args.frame_stride, turn_hz=args.turn_hz,
+        print_interval=args.print_interval, write_video=not args.no_video,
+        output_dir=args.output, thresholds=ThresholdConfig(), **hints)
+    return InferenceEngine(model, cfg, ecfg, device=args.device)
+
+
+def cmd_infer(args) -> int:
+    infer_engine(args).process_video(args.video, max_frames=args.max_frames)
+    return 0
+
+
+def cmd_inspect(args) -> int:
+    from unet_tpu_torch.serve.inspect_tool import run_inspection
+
+    return run_inspection(args.config, args.video, args.output, device=args.device)
+
+
+def cmd_serve(args) -> int:
+    """Serve N videos/cameras through one fixed-batch step
+    (serve/multistream.py): every stream is a slot of one device batch."""
+    from unet_tpu_torch.pipeline import get_preset
+    from unet_tpu_torch.serve.service import open_sources, serve_streams
+
+    cfg = get_preset(args.preset)
+    if args.model_size:
+        cfg = cfg.replace_in("preprocess", model_size=(args.model_size, args.model_size))
+    model, num_classes, arch = load_model(args.model, args.arch, args.dtype,
+                                          cfg.segment.num_classes)
+    if num_classes != cfg.segment.num_classes:
+        cfg = cfg.replace_in("segment", num_classes=num_classes)
+    if arch == "nested_unet":
+        cfg = cfg.replace_in("segment", fast_forward=True)
+
+    named = open_sources(args.videos, args.cameras, frame_stride=args.frame_stride,
+                         max_frames=args.max_frames)
+    print(f"serving {len(named)} streams "
+          f"({', '.join(n for n, _ in named)}) -> {args.output}")
+    summary = serve_streams(model, cfg, named, args.output,
+                            burr_event_px=args.burr_event_px, device=args.device)
+    print(json.dumps(summary, indent=2))
+    return 0
+
+
+def cmd_not_ported(args) -> int:
+    raise SystemExit(f"{args.cmd}: not ported to unet_tpu_torch yet, "
+                     f"{_NOT_PORTED[args.cmd]}; the JAX package has it "
+                     f"(python -m unet_tpu.cli {args.cmd})")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="unet_tpu_torch", description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    def device_flag(sp):
+        sp.add_argument("--device", default="cuda",
+                        help="torch device; 'cpu' runs the plain versions of the kernels")
+
+    pi = sub.add_parser("infer", help="video/image-dir inference with a preset")
+    pi.add_argument("--video", required=True, help="video file or image dir")
+    pi.add_argument("--output", required=True)
+    pi.add_argument("--preset", default="two_stage")
+    pi.add_argument("--config", default=None,
+                    help="pipeline YAML overriding --preset (ROADMAP A12)")
+    pi.add_argument("--model", default=None, help="reference .pth")
+    pi.add_argument("--arch", default="nested_unet")
+    pi.add_argument("--dtype", default="bfloat16", choices=list(_DTYPES))
+    pi.add_argument("--batch", type=int, default=8)
+    pi.add_argument("--frame-stride", type=int, default=1)
+    pi.add_argument("--max-frames", type=int, default=None)
+    pi.add_argument("--print-interval", type=int, default=60)
+    pi.add_argument("--no-video", action="store_true")
+    pi.add_argument("--model-size", type=int, default=None)
+    pi.add_argument("--rotate", action="store_true",
+                    help="rotate 90 CCW (reference --rotate)")
+    pi.add_argument("--normalize-resolution", action="store_true",
+                    help="resize to 800x448 (reference --normalize-resolution)")
+    pi.add_argument("--burr-sensitivity", default="medium",
+                    choices=["low", "medium", "high"])
+    pi.add_argument("--window", type=int, default=None, choices=[0, 1],
+                    help="force window/production mode on (1) or off (0); "
+                         "default follows the preset")
+    pi.add_argument("--turn-hz", type=float, default=None,
+                    help="turn-rate frame sampling (reference infer_video.py)")
+    pi.add_argument("--fast", default="auto", choices=["auto", "on", "off"],
+                    help="BN-folded forward (models/fast_forward.py)")
+    pi.add_argument("--int8", action="store_true",
+                    help="int8 forward, calibrated on frames strided across the video "
+                         "(models/quantized.py)")
+    device_flag(pi)
+    pi.set_defaults(fn=cmd_infer)
+
+    ps = sub.add_parser("inspect", help="yaml-config inspection serve")
+    ps.add_argument("--config", required=True)
+    ps.add_argument("--video", required=True)
+    ps.add_argument("--output", default="./inspection_output")
+    device_flag(ps)
+    ps.set_defaults(fn=cmd_inspect)
+
+    pm = sub.add_parser(
+        "serve", help="serve N videos/cameras through one batched device step")
+    pm.add_argument("--videos", nargs="*", default=[],
+                    help="video files and/or image dirs, one stream each")
+    pm.add_argument("--cameras", nargs="*", default=[],
+                    help="GigE specs <cti_path>[:serial], one stream each")
+    pm.add_argument("--output", required=True)
+    pm.add_argument("--preset", default="wrap_7class")
+    pm.add_argument("--model", default=None, help="reference .pth")
+    pm.add_argument("--arch", default="nested_unet")
+    pm.add_argument("--dtype", default="bfloat16", choices=list(_DTYPES))
+    pm.add_argument("--model-size", type=int, default=None)
+    pm.add_argument("--frame-stride", type=int, default=1)
+    pm.add_argument("--max-frames", type=int, default=None,
+                    help="per-stream cap (required for endless cameras)")
+    pm.add_argument("--burr-event-px", type=int, default=50,
+                    help="burr pixel count that logs an events.jsonl entry")
+    device_flag(pm)
+    pm.set_defaults(fn=cmd_serve)
+
+    for name, item in _NOT_PORTED.items():
+        sub.add_parser(name, help=f"not ported yet: {item}").set_defaults(fn=cmd_not_ported)
+    return p
+
+
+def main(argv: Optional[list] = None) -> int:
+    parser = build_parser()
+    # a command not ported yet takes any flags of the JAX package's and names its item
+    args, extra = parser.parse_known_args(argv)
+    if extra and args.fn is not cmd_not_ported:
+        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,6 +1,8 @@
 """Flax variables -> PyTorch state dict (the inverse of
 unet_tpu/models/convert.py:40-147 `convert_state_dict` for `nested_unet`),
-and the JAX package's int8 parameters -> the port's (`qparams_from_jax`).
+the JAX package's int8 parameters -> the port's (`qparams_from_jax`), and
+reference `.pth` files read with their model family and class count
+(`load_pth`, `detect_model_kind`, `infer_num_classes`).
 
 Input is the JAX package's `{"params": ..., "batch_stats": ...}` tree with
 numpy (or array-like) leaves; no JAX import is needed. Conv kernels go
@@ -79,3 +81,37 @@ def qparams_from_jax(qp: Any, dtype: torch.dtype = torch.bfloat16, device="cpu")
     return QParams(blocks=blocks, final_w=_t(fw).to(device=device, dtype=dtype),
                    final_b=_t(np.asarray(qp.final_b, np.float32)).to(device=device, dtype=dtype),
                    scales={k: float(v) for k, v in qp.scales.items()}, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# reference .pth checkpoints (counterpart of unet_tpu/models/convert.py:26-37, 79-92)
+# ---------------------------------------------------------------------------
+
+def load_pth(path: str) -> Dict[str, torch.Tensor]:
+    """A reference .pth as a state dict on the CPU, unwrapped from the
+    containers the reference writes: {epoch, model, optimizer, ...},
+    {model_state_dict: ...}, {state_dict: ...} or a bare state dict."""
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(obj, dict):
+        for key in ("model", "model_state_dict", "state_dict"):
+            if key in obj and isinstance(obj[key], dict):
+                obj = obj[key]
+                break
+    return {k: v.detach() for k, v in obj.items() if isinstance(v, torch.Tensor)}
+
+
+def detect_model_kind(sd: Dict[str, Any]) -> str:
+    """The reference model family of a state dict, by its key layout."""
+    if "conv0_0.conv1.weight" in sd:
+        return "nested_unet"
+    if "conv0_0.0.weight" in sd:
+        return "nested_unet_resnet50"
+    if "enc1.0.weight" in sd:
+        return "simple_unet"
+    raise ValueError("unrecognized checkpoint key layout")
+
+
+def infer_num_classes(sd: Dict[str, Any]) -> int:
+    """Output classes from the final 1x1 conv (the reference's
+    auto-num-classes, infer_video_refactored.py:59)."""
+    return int(sd["final.weight"].shape[0])

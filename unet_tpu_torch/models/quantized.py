@@ -215,7 +215,8 @@ def _maxpool2_int8(x: torch.Tensor) -> torch.Tensor:
 def quantize_input(x: torch.Tensor, scale: float) -> torch.Tensor:
     """(B, H, W, 3) float in [0, 1] -> int8 codes, round half to even:
     x * (1 / scale) in float32, as the jitted JAX step computes x / scale."""
-    r = torch.tensor(recip32(scale), dtype=torch.float32, device=x.device)
+    # a 0-dim CPU tensor is a scalar operand: no host-to-device copy
+    r = torch.tensor(recip32(scale), dtype=torch.float32)
     return torch.clamp(torch.round(x.to(torch.float32) * r), -127, 127).to(torch.int8)
 
 

@@ -27,6 +27,10 @@ _TG22 = 13573
 _CANNY_SHIFT = 15
 
 
+def _replicate_indices(n: int, before: int, after: int):
+    return (np.clip(np.arange(-before, n + after, dtype=np.int64), 0, n - 1),)
+
+
 def _corr1d(x: torch.Tensor, kernel: Sequence[float], axis: int, border: str) -> torch.Tensor:
     """Correlate one axis of `x` (as float32) with a static 1-D kernel,
     `border` "reflect101" or "replicate"; zero taps are skipped and the rest
@@ -35,12 +39,12 @@ def _corr1d(x: torch.Tensor, kernel: Sequence[float], axis: int, border: str) ->
     ra = len(kernel) - 1 - rb
     n = x.shape[axis]
     if border == "reflect101":
-        idx = _image._reflect101_indices(n, rb, ra)
+        idx = _image._table(_image._reflect101_indices, n, rb, ra, x.device)[0]
     elif border == "replicate":
-        idx = np.clip(np.arange(-rb, n + ra), 0, n - 1)
+        idx = _image._table(_replicate_indices, n, rb, ra, x.device)[0]
     else:
         raise ValueError(border)
-    xp = x.to(torch.float32).index_select(axis, torch.from_numpy(idx).to(x.device))
+    xp = x.to(torch.float32).index_select(axis, idx)
     out = None
     for i, w in enumerate(kernel):
         if w == 0.0:

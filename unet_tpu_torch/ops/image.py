@@ -13,10 +13,13 @@ Conventions, as in the reference:
   * the filters' border is BORDER_REFLECT_101
 
 Index and weight tables are computed with numpy in float64 exactly as the
-reference computes them, then moved to the tensor's device.
+reference computes them, then moved to the tensor's device once per
+(sizes, device) and kept (`_table`): a copy from pageable host memory on
+every call would wait for the device's queue.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence
 
@@ -30,8 +33,15 @@ def _channel_axes(img: torch.Tensor, channel_dim) -> int:
     return img.ndim - (3 if channel_dim else 2)
 
 
-def _idx(a: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(device)
+@functools.lru_cache(maxsize=512)
+def _table(make, *key):
+    """The numpy arrays of `make(*key[:-1])` as tensors on the device
+    `key[-1]`, built once per key. Built outside inference mode, so that a
+    table also serves a forward that keeps gradients."""
+    *args, device = key
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                     for a in make(*args))
 
 
 def recip32(c: float) -> float:
@@ -60,12 +70,12 @@ def _resize_axis_linear(x: torch.Tensor, out_size: int, axis: int) -> torch.Tens
     in_size = x.shape[axis]
     if in_size == out_size:
         return x
-    i0, i1, frac = _linear_index_weights(out_size, in_size)
+    i0, i1, frac = _table(_linear_index_weights, out_size, in_size, x.device)
     shape = [1] * x.ndim
     shape[axis] = out_size
-    frac = torch.from_numpy(frac).to(x.device).reshape(shape)
-    a = x.index_select(axis, _idx(i0, x.device))
-    b = x.index_select(axis, _idx(i1, x.device))
+    frac = frac.reshape(shape)
+    a = x.index_select(axis, i0)
+    b = x.index_select(axis, i1)
     return a * (1.0 - frac) + b * frac
 
 
@@ -83,20 +93,20 @@ def resize_bilinear(img: torch.Tensor, out_hw: Sequence[int],
     return x.to(img.dtype)
 
 
-def _nearest_indices(out_size: int, in_size: int) -> np.ndarray:
+def _nearest_indices(out_size: int, in_size: int):
     scale = in_size / out_size
-    return np.minimum(np.floor(np.arange(out_size) * scale),
-                      in_size - 1).astype(np.int64)
+    return (np.minimum(np.floor(np.arange(out_size) * scale),
+                       in_size - 1).astype(np.int64),)
 
 
 def resize_nearest(img: torch.Tensor, out_hw: Sequence[int],
                    channel_dim: bool = None) -> torch.Tensor:
     """cv2.resize(..., INTER_NEAREST) parity (src = floor(dst * scale))."""
     h_ax = _channel_axes(img, channel_dim)
-    x = img.index_select(h_ax, _idx(_nearest_indices(int(out_hw[0]),
-                                                     img.shape[h_ax]), img.device))
-    return x.index_select(h_ax + 1, _idx(_nearest_indices(
-        int(out_hw[1]), img.shape[h_ax + 1]), img.device))
+    x = img.index_select(h_ax, _table(_nearest_indices, int(out_hw[0]),
+                                      img.shape[h_ax], img.device)[0])
+    return x.index_select(h_ax + 1, _table(_nearest_indices, int(out_hw[1]),
+                                           img.shape[h_ax + 1], img.device)[0])
 
 
 def _upsample2x_taps(n: int):
@@ -130,13 +140,12 @@ def upsample2x_align_corners(x: torch.Tensor, h_axis: int, w_axis: int) -> torch
         n = t.shape[axis]
         if n == 1:
             return t.repeat_interleave(2, dim=axis)
-        i0, i1, w0, w1 = _upsample2x_taps(n)
+        i0, i1, w0, w1 = _table(_upsample2x_taps, n, t.device)
         shape = [1] * t.ndim
         shape[axis] = 2 * n
-        w0, w1 = (torch.from_numpy(w).to(t.dtype).to(torch.float32)
-                  .reshape(shape).to(t.device) for w in (w0, w1))
-        a = t.index_select(axis, _idx(i0, t.device)).to(torch.float32)
-        b = t.index_select(axis, _idx(i1, t.device)).to(torch.float32)
+        w0, w1 = (w.to(t.dtype).to(torch.float32).reshape(shape) for w in (w0, w1))
+        a = t.index_select(axis, i0).to(torch.float32)
+        b = t.index_select(axis, i1).to(torch.float32)
         return (a * w0 + b * w1).to(t.dtype)
 
     return axis_up(axis_up(x, h_axis), w_axis)
@@ -152,10 +161,10 @@ def rotate90_ccw(img: torch.Tensor, channel_dim: bool = None) -> torch.Tensor:
 # separable filters
 # ---------------------------------------------------------------------------
 
-def _reflect101_indices(n: int, before: int, after: int) -> np.ndarray:
-    i = np.arange(-before, n + after)
+def _reflect101_indices(n: int, before: int, after: int):
+    i = np.arange(-before, n + after, dtype=np.int64)
     i = np.where(i < 0, -i, i)
-    return np.where(i >= n, 2 * (n - 1) - i, i)
+    return (np.where(i >= n, 2 * (n - 1) - i, i),)
 
 
 def filter1d(x: torch.Tensor, kernel, axis: int) -> torch.Tensor:
@@ -166,7 +175,7 @@ def filter1d(x: torch.Tensor, kernel, axis: int) -> torch.Tensor:
     r_after = len(k) - 1 - r_before
     n = x.shape[axis]
     xp = x.to(torch.float32).index_select(
-        axis, _idx(_reflect101_indices(n, r_before, r_after), x.device))
+        axis, _table(_reflect101_indices, n, r_before, r_after, x.device)[0])
     out = None
     for i, w in enumerate(k):
         term = xp.narrow(axis, i, n) * float(w)
@@ -211,9 +220,9 @@ def gaussian_blur(img: torch.Tensor, ksize, sigma: float,
 
 def _pad_hw_reflect101(x: torch.Tensor, h_ax: int, rt: int, rb: int,
                        rl: int, rr: int) -> torch.Tensor:
-    x = x.index_select(h_ax, _idx(_reflect101_indices(x.shape[h_ax], rt, rb), x.device))
-    return x.index_select(h_ax + 1, _idx(_reflect101_indices(x.shape[h_ax + 1], rl, rr),
-                                         x.device))
+    x = x.index_select(h_ax, _table(_reflect101_indices, x.shape[h_ax], rt, rb, x.device)[0])
+    return x.index_select(h_ax + 1,
+                          _table(_reflect101_indices, x.shape[h_ax + 1], rl, rr, x.device)[0])
 
 
 def filter2d(img: torch.Tensor, kernel, channel_dim: bool = None) -> torch.Tensor:

@@ -1,5 +1,9 @@
-"""Inference pipeline of the port: config tree, presets and the fused step."""
+"""Inference pipeline of the port: config tree, presets, the fused step,
+overlays and the inference engine."""
 from unet_tpu_torch.pipeline.config import (  # noqa: F401
     ROI, BurrCfg, GeometryCfg, InspectCfg, PipelineCfg, PostprocessCfg,
     PreprocessCfg, SegmentCfg)
-from unet_tpu_torch.pipeline.presets import PRESETS, get_preset  # noqa: F401
+from unet_tpu_torch.pipeline import stages, visualize  # noqa: F401
+from unet_tpu_torch.pipeline.presets import (  # noqa: F401
+    PRESETS, engine_hints, get_preset)
+from unet_tpu_torch.pipeline.engine import EngineConfig, InferenceEngine  # noqa: F401

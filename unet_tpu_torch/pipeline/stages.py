@@ -305,14 +305,18 @@ def run_pipeline(forward: Callable[[torch.Tensor], torch.Tensor], frames_bgr: to
                      cfg.roi, (H, W))
 
     # the reference skips the burr stage when no frame holds cable
-    # (infer_two_stage_burr.py:69-70)
+    # (infer_two_stage_burr.py:69-70), the JAX step by lax.cond on the
+    # device. The port runs it and selects on the device: a host branch on
+    # cable.any() would wait for the forward and keep the host from queueing
+    # the next batch behind it
     burr_fn = _BURR_METHODS[cfg.burr.method]
-    if burr_fn is not None and bool(cable.any()):
+    if burr_fn is not None:
         gray = _color.bgr2gray(frames)
         if cfg.roi is not None:
             burr = _burr_on_roi_crop(gray, cable, cfg, burr_fn, (H, W))
         else:
             burr = burr_fn(gray, cable, cfg.burr)
+        burr = torch.where(cable.any(), burr, False)
     else:
         burr = torch.zeros_like(cable)
 

@@ -1,4 +1,8 @@
 """Serving of the port (counterpart of unet_tpu/serve): the multi-stream
-server. `serve/service.py` (`open_sources`, `serve_streams`), the inspection
-tool and `cli serve` are not ported yet (ROADMAP A6)."""
+server, `cli serve`'s stream wiring (`open_sources`, `serve_streams`) and the
+YAML-configured inspection system. Serving over a device mesh is ROADMAP
+A15."""
+from unet_tpu_torch.serve.inspect_tool import (  # noqa: F401
+    InspectionConfig, InspectionSystem, run_inspection)
 from unet_tpu_torch.serve.multistream import MultiStreamServer, StreamResult  # noqa: F401
+from unet_tpu_torch.serve.service import open_sources, serve_streams  # noqa: F401
