@@ -21,8 +21,18 @@ Phases; any failure exits non-zero and prints no result line:
      field against the same step on the CPU (integers equal, floats within
      1e-4); each step then timed in turns with the same config with
      geometry off, so that the difference is the geometry's cost on masks
-     that hold cable and tape, and profiled. B1's sites are named by caller
-     (`_cc_site`)
+     that hold cable and tape, and profiled. Then the eight presets of the
+     threshold modes, the model-resolution and shape postprocess, the
+     letterbox and dynamic ROI, the quality gate and the tracker
+     (`phase_presets`: video_full, optimized, simple_7class, strict,
+     v3_high_quality at 256^2, robust, spatial, roi_first at 512^2), b=8,
+     each with its colour->class model (7 and 6 classes paint the defect
+     colours of `defect_scenes`): launches per cluster size (PRESET_B1),
+     cable and tape in every frame, and the batch against the same step
+     on the CPU (integers equal, floats within 1e-4, quality
+     statistics within 1e-4 relative); then each with a seeded full-width
+     NestedUNet of its class count, ms per batch. B1's sites are named by
+     caller (`_cc_site`)
   4. kernels: B1 (cc_propagate) against its plain version bit for bit, on
      the masks of tests/test_cc_pallas.py, on noise and serpentine masks at
      both paths' crop shapes, on masks that cross the cluster route's stripe
@@ -36,6 +46,9 @@ Phases; any failure exits non-zero and prints no result line:
      turns, and B2 at search 1 (its fixed cost; the rest is per offset).
      B1 in label mode at 256x256 and 448x800 (noise, wrap tape, and a
      serpentine that `max_iters` 64 cuts short), each on its cluster size.
+     The presets' new sites too: 512x512 labels (spatial_strip_filter,
+     refine_mask_by_geometry), the 448x800 hysteresis of
+     detect_vertical_roi, robust's 448x800 labels and the tracker's.
      Then B1's trace at the main-path inputs (`trace_cc`): per route, one
      and two iterations, the run-min passes alone, and the masks'
      foreground share; and the global route's sweep against the batch
@@ -89,7 +102,12 @@ Phases; any failure exits non-zero and prints no result line:
      frames/s, legs and batch latency at b=8 and b=32 over 2048 files, hard
      links to 256 other frames (median of two calls after a warm-up) beside
      the bare step's frames/s; the engine's launches per batch beside each
-     kernel's `launches`, which count the step paths above
+     kernel's `launches`, which count the step paths above; `infer --preset
+     optimized` with a seeded 7-class NestedUNet; then `optimized` and
+     `video_full` through `InferenceEngine` with the 7-class colour model
+     over `gate_scenes` (`phase_inspect_engine`): every skipped.csv,
+     events.csv and confirmed_defects.csv row against the step through the
+     host's gate and tracker
 Then, on the last two lines, the kernels' JSON record and
 {"ok": true, "device": {...}}.
 
@@ -155,14 +173,15 @@ def synthetic_frames(batch: int, h: int, w: int, seed: int = 0,
     return out
 
 
-def wrap_scenes(batch: int, h: int, w: int, seed: int = 0) -> np.ndarray:
+def wrap_scenes(batch: int, h: int, w: int, seed: int = 0, band: bool = True) -> np.ndarray:
     """(batch, h, w, 3) uint8 BGR wrap scenes for the geometry presets: the
     vertical cable strip of `synthetic_frames` with tape standing out on
     both of its sides over the middle two thirds of the rows (a flank of
     25-35 % of the cable's width each side, drawn per frame), the flanks
-    joined across the cable by a band of 4 % of the rows at the top, on a
-    textured background with sensor noise. Rows holding both give the cable
-    and tape diameters; no burr patches."""
+    joined across the cable by a band of 4 % of the rows at the top (with
+    `band`; without it the cable is one component), on a textured
+    background with sensor noise. Rows holding both give the cable and tape
+    diameters; no burr patches."""
     out = np.empty((batch, h, w, 3), np.uint8)
     x1, x2 = int(w * 0.35), int(w * 0.45)
     for i in range(batch):
@@ -173,7 +192,8 @@ def wrap_scenes(batch: int, h: int, w: int, seed: int = 0) -> np.ndarray:
         y1, y2 = h // 6, 5 * h // 6
         bgr[y1:y2, x1 - t:x1] = (60, 90, 200)
         bgr[y1:y2, x2:x2 + t] = (60, 90, 200)
-        bgr[y1:y1 + max(2, h // 25), x1 - t:x2 + t] = (60, 90, 200)
+        if band:
+            bgr[y1:y1 + max(2, h // 25), x1 - t:x2 + t] = (60, 90, 200)
         bgr += r.normal(0, 6.0, (h, w, 3))
         out[i] = np.clip(bgr, 0, 255).astype(np.uint8)
     return out
@@ -225,6 +245,78 @@ class ColourClassModel(nn.Module):
         tape = (x[:, 0] > 0.6) & (x[:, 2] < 0.4) & ~cable
         cls = torch.where(tape, 2, torch.where(cable, 1, 0))
         return nn.functional.one_hot(cls, 3).permute(0, 3, 1, 2).float() * 10.0
+
+
+# defect colours of `defect_scenes` (BGR) and the classes `ColourDefectModel`
+# reads them as, in channel order 3, 4, 5, 6: green, blue, yellow, magenta
+DEFECT_BGR = ((30, 200, 30), (200, 40, 30), (30, 200, 200), (200, 30, 200))
+
+
+class ColourDefectModel(nn.Module):
+    """`ColourClassModel` with `num_classes` channels: channels 3 and up
+    read the defect colours of `defect_scenes` (green, blue, yellow,
+    magenta), which win over cable and tape; fabricated logits, one-hot
+    times 10. The tests' JAX twin gives the same classes bit for bit."""
+
+    def __init__(self, num_classes: int = 7):
+        super().__init__()
+        self.num_classes = num_classes
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        r, g, b = x[:, 0], x[:, 1], x[:, 2]
+        hi, lo = (lambda c: c > 0.6), (lambda c: c < 0.4)
+        cable = hi(r) & hi(b)
+        tape = hi(r) & lo(b) & ~cable
+        cls = torch.where(tape, 2, torch.where(cable, 1, 0))
+        colours = (hi(g) & lo(r) & lo(b), hi(b) & lo(r) & lo(g),
+                   hi(r) & hi(g) & lo(b), hi(r) & hi(b) & lo(g))
+        for k in range(3, self.num_classes):
+            cls = torch.where(colours[k - 3], k, cls)
+        return nn.functional.one_hot(cls, self.num_classes).permute(0, 3, 1, 2).float() * 10.0
+
+
+def defect_scenes(batch: int, h: int, w: int, seed: int = 0, classes: int = 4) -> np.ndarray:
+    """`wrap_scenes` with `classes` defect patches on the cable, one of
+    each colour of DEFECT_BGR in turn down the rows, each about a twelfth
+    of the rows by half the cable's width, at the same place in every
+    frame but for a jitter of one pixel drawn per frame: the tracker sees
+    them persist."""
+    out = wrap_scenes(batch, h, w, seed=seed)
+    x1, x2 = int(w * 0.35), int(w * 0.45)
+    ph, pw = max(4, h // 12), max(3, (x2 - x1) // 2)
+    for i in range(batch):
+        r = np.random.default_rng(seed + 1000 + i)
+        for k in range(classes):
+            y = (k + 1) * h // (classes + 2) + int(r.integers(-1, 2))
+            x = x1 + (x2 - x1 - pw) // 2 + int(r.integers(-1, 2))
+            out[i, y:y + ph, x:x + pw] = np.clip(
+                np.asarray(DEFECT_BGR[k], np.float64) + r.normal(0, 6.0, (ph, pw, 3)), 0, 255)
+    return out
+
+
+def gate_scenes(n: int, h: int, w: int, seed: int = 0, classes: int = 4) -> np.ndarray:
+    """n frames of `defect_scenes` in which the frame quality gate has work:
+    every 7th frame flat grey with faint noise (std < 3: a glitch), every
+    7th from the 3rd a 9x9 box blur of its scene brightened by 25 (low
+    Laplacian variance and a large diff against the frame before: motion
+    blur), every 7th from the 5th a copy of the frame before (frozen: no
+    diff)."""
+    f = defect_scenes(n, h, w, seed=seed, classes=classes)
+    r = np.random.default_rng(seed + 77)
+    for i in range(n):
+        if i % 7 == 0:
+            f[i] = np.clip(120 + r.normal(0, 1.0, (h, w, 3)), 0, 255).astype(np.uint8)
+        elif i % 7 == 2:
+            x = f[i].astype(np.float64)
+            for ax in (0, 1):
+                pad = [(0, 0)] * 3
+                pad[ax] = (4, 4)
+                xp = np.pad(x, pad, mode="edge")
+                x = sum(np.take(xp, np.arange(k, k + x.shape[ax]), axis=ax) for k in range(9)) / 9
+            f[i] = np.clip(x + 25, 0, 255).astype(np.uint8)
+        elif i % 7 == 4:
+            f[i] = f[i - 1]
+    return f
 
 
 def seeded_nested_unet(num_classes: int = 3, seed: int = 0,
@@ -626,24 +718,26 @@ def phase_nlm(recorded, sms, clock_hz):
 
 _CC_CALLERS = {"hysteresis": "hysteresis", "filter_components_by_geometry": "cc_filter",
                "connected_components": "label"}
-_LABEL_CALLERS = ("largest_component", "count_components", "analyze_defects")
+# the callers that name a site further: the first of these up the stack
+_SITE_CALLERS = {"label": ("largest_component", "count_components", "analyze_defects",
+                           "spatial_strip_filter", "refine_mask_by_geometry",
+                           "filter_cable_by_shape", "defect_components"),
+                 "hysteresis": ("detect_vertical_roi",)}
 
 
 def _cc_site(frame) -> str:
     """The B1 site a call of `cc_kernels.propagate` comes from, by its
-    callers (the stack from `frame` outwards): "hysteresis" (Canny),
-    "cc_filter" (the burr CC filter) or "label (<caller>)", the caller of
-    `ops.cc.connected_components` being largest_component, count_components
-    or analyze_defects."""
+    callers (the stack from `frame` outwards): "hysteresis" (Canny; the
+    dynamic ROI's Canny is "hysteresis (detect_vertical_roi)"), "cc_filter"
+    (the burr CC filter) or "label (<caller>)", the caller of
+    `ops.cc.connected_components` being one of _SITE_CALLERS["label"]."""
     site = None
     while frame is not None:
         name = frame.f_code.co_name
         if site is None and name in _CC_CALLERS:
             site = _CC_CALLERS[name]
-            if site != "label":
-                return site
-        elif site == "label" and name in _LABEL_CALLERS:
-            return f"label ({name})"
+        elif site is not None and name in _SITE_CALLERS.get(site, ()):
+            return f"{site} ({name})"
         frame = frame.f_back
     return site or "unknown"
 
@@ -664,8 +758,8 @@ def _record_main_path_inputs(step, frames, path: str):
     def cc_spy(state0, fg, **kw):
         site = f"{path}/{_cc_site(sys._getframe(1))}"
         if site.startswith(f"{path}/label"):
-            site = f"{path}/label {sum(k.startswith(f'{path}/label') for k in cc_rec) + 1} " \
-                   + site.split("/label ")[1]
+            site = f"{path}/label {sum(k.startswith(f'{path}/label') for k in cc_rec) + 1}" \
+                   + site[len(f"{path}/label"):]
         cc_rec[site] = (state0.clone(), fg.clone(), kw)
         return real_cc(state0, fg, **kw)
 
@@ -754,21 +848,31 @@ def geometry_scenes(path: str, b: int, h: int, w: int, seed: int) -> np.ndarray:
     return wrap_scenes(b, h, w, seed=seed)
 
 
+QUALITY_RTOL = 1e-4   # quality statistics, card vs CPU (tests/test_torch_host.py)
+
+
 def _compare_outputs(got, want, what) -> float:
     """Card outputs against the CPU's: class map, px counts and every
-    integer field of diameters and defects equal, every float field within
-    GEOMETRY_ATOL. Returns the largest float difference."""
+    integer field of diameters, defects and defect components equal, every
+    float field within GEOMETRY_ATOL, the quality statistics within
+    QUALITY_RTOL relative. Returns the largest float difference of the
+    geometry."""
     err = 0.0
     for f in ("class_map", "cable_px", "tape_px", "burr_px"):
         if not torch.equal(getattr(got, f).cpu(), getattr(want, f).cpu()):
             raise AssertionError(f"{what}: {f} differs between the card and the CPU")
-    for part in ("diameters", "defects"):
+    for part in ("diameters", "defects", "defect_components", "quality"):
         g, w = getattr(got, part), getattr(want, part)
         if (g is None) != (w is None):
             raise AssertionError(f"{what}: {part} on one side only")
         for f in (g._fields if g is not None else ()):
             gv, wv = getattr(g, f).cpu(), getattr(w, f).cpu()
-            if wv.is_floating_point():
+            if part == "quality":
+                e = float(((gv - wv).abs() / wv.abs().clamp(min=1e-30)).max())
+                if not e <= QUALITY_RTOL:
+                    raise AssertionError(f"{what}: quality.{f} card vs CPU relative {e} > "
+                                         f"{QUALITY_RTOL}")
+            elif wv.is_floating_point():
                 e = float((gv - wv).abs().max()) if wv.numel() else 0.0
                 err = max(err, e)
                 if not e <= GEOMETRY_ATOL:
@@ -842,6 +946,232 @@ def phase_geometry_paths(cfgs, expect, H, W, device="cuda", reps=5):
         if torch.device(device).type == "cuda":
             _profile_step(step, frames8, ms, f"{path} colour->class b=8")
     return cc_rec, counts, checks, timings
+
+
+# the eight presets of the threshold modes, the model-resolution and shape
+# postprocess, the letterbox and dynamic ROI, the quality gate and the tracker
+PRESET_PATHS = ("video_full", "optimized", "simple_7class", "strict", "v3_high_quality",
+                "robust", "spatial", "roi_first")
+# B1 launches of each one's step, on clusters of 8 (planes of 256^2 and
+# 512^2) and of 16 (448x800): the 7-class presets label cable and tape at
+# their model's 256^2, analyze_defects labels holes, tape and cable at the
+# frame, the tracker its defect components; v3's close sends the cable and
+# tape labels to the frame; robust labels cable, tape ring and both
+# diameters at the frame; spatial and roi_first gate at their 512^2 and
+# label the diameters at the frame, roi_first after the Canny hysteresis of
+# its dynamic ROI on the frame
+PRESET_B1 = {"video_full": (2, 3), "optimized": (2, 4), "simple_7class": (2, 0),
+             "strict": (2, 0), "v3_high_quality": (0, 5), "robust": (0, 4), "spatial": (2, 2),
+             "roi_first": (2, 3)}
+
+
+def preset_colour_model(num_classes: int) -> nn.Module:
+    """The colour->class model of a preset's class count."""
+    return ColourDefectModel(num_classes) if num_classes > 3 else ColourClassModel()
+
+
+def preset_scenes(name: str, b: int, h: int, w: int, seed: int) -> np.ndarray:
+    """Frames for one of PRESET_PATHS: defect scenes with a patch of each
+    defect class for the presets of more than 3 classes, wrap scenes for
+    the others (roi_first's without the band across the cable, so that the
+    cable in its crop is one tall component its aspect gate keeps)."""
+    from unet_tpu_torch.pipeline import presets
+
+    n = presets.get_preset(name).segment.num_classes
+    if n > 3:
+        return defect_scenes(b, h, w, seed=seed, classes=n - 3)
+    return wrap_scenes(b, h, w, seed=seed, band=name != "roi_first")
+
+
+def phase_presets(cfgs, expect, H, W, device="cuda", b=8, reps=5, models=True):
+    """The eight PRESET_PATHS ({path: config} `cfgs`) on `device` at b on
+    HxW frames, each at its own model size and class count. With its colour->class model: the B1
+    inputs recorded, one batch driven with every launch count checked
+    (`_drive`), cable and tape in every frame (and a defect component of
+    each class, where the preset tracks them), the whole batch against the
+    same step on the CPU (`_compare_outputs`), then ms per batch
+    (`_time_step`) and, on the card, a profile (device busy time, idle
+    share). With a
+    seeded full-width NestedUNet (`models`): one batch driven, then ms per
+    batch (`_time_step`). Returns (B1 inputs, {path: counts}, {check:
+    value}, {path: record})."""
+    from unet_tpu_torch.pipeline import presets, stages
+
+    cc_rec, counts, checks, timings = {}, {}, {}, {}
+    for name in PRESET_PATHS:
+        cfg = cfgs[name]
+        n, size = cfg.segment.num_classes, cfg.preprocess.model_size[0]
+        frames = torch.from_numpy(preset_scenes(name, b, H, W, seed=0)).to(device)
+        prev = frames[1:2] if cfg.inspect.quality_stats else None
+        step = stages.build_step(preset_colour_model(n), cfg, device=device)
+        rec = _record_main_path_inputs(lambda f: step(f, prev), frames, name)[0]
+        cc_rec.update(rec)
+        out, counts[name] = _drive(lambda f: step(f, prev), frames, expect[name],
+                                   f"{name}, colour->class model, b={b}, {W}x{H}, model {size}^2")
+        _check_outputs(out, b, H, W, f"{name} colour run")
+        if int(out.cable_px.min()) == 0 or int(out.tape_px.min()) == 0:
+            raise AssertionError(f"{name} colour run: a frame without cable or tape "
+                                 f"({out.cable_px.tolist()}, {out.tape_px.tolist()})")
+        comps = out.defect_components
+        if comps is not None and int(comps.valid.sum(-1).min()) < n - 3:
+            raise AssertionError(f"{name} colour run: defect components "
+                                 f"{comps.valid.sum(-1).tolist()}")
+        t = time.time()
+        ref = stages.build_step(preset_colour_model(n), cfg, device="cpu")(
+            frames.cpu(), None if prev is None else prev.cpu())
+        cpu_s = time.time() - t
+        checks[f"{name}_float_max_abs_err_card_vs_cpu"] = _compare_outputs(out, ref, name)
+        sites = {k.split("/", 1)[1]: f"{tuple(v[0].shape)} {_route_name(v[0])}"
+                 for k, v in rec.items()}
+        _log(f"  {name}: card == CPU at b={b} (CPU step {cpu_s:.1f} s): class_map, px "
+             f"counts, integer fields; floats within "
+             f"{checks[f'{name}_float_max_abs_err_card_vs_cpu']:.3e}; cable_px "
+             f"{out.cable_px.tolist()}, tape_px {out.tape_px.tolist()}"
+             + (f", defect areas {out.defects.total_defect_area.tolist()}"
+                if out.defects is not None else "")
+             + (f", defect components {comps.valid.sum(-1).tolist()}" if comps is not None
+                else "") + f"; B1 sites {sites}")
+        colour = lambda f: step(f, prev)
+        colour_ms = _time_step(colour, frames, reps)
+        rec_t = dict(model_size=size, classes=n, b1_sites=sites, colour_cpu_seconds=cpu_s,
+                     colour_ms=colour_ms)
+        _log(f"  {name} colour->class b={b}: {colour_ms:.3f} ms/batch (masks with cable, tape "
+             f"and defects)")
+        if torch.device(device).type == "cuda":
+            rec_t["colour_profile"] = _profile_step(colour, frames, colour_ms,
+                                                    f"{name} colour->class b={b}")
+        if models:
+            model = seeded_nested_unet(num_classes=n)
+            nstep = stages.build_step(model, cfg, device=device)
+            nframes = torch.from_numpy(preset_scenes(name, b, H, W, seed=10)).to(device)
+            outn, _ = _drive(nstep, nframes, expect[name],
+                             f"{name}, NestedUNet {size}^2 {n} classes, b={b}")
+            _check_outputs(outn, b, H, W, f"{name} NestedUNet")
+            ms = _time_step(nstep, nframes, reps)
+            rec_t.update(ms=ms, frames_per_s=b / ms * 1e3, cable_px=outn.cable_px.tolist())
+            _log(f"{name} NestedUNet fp32 {size}^2 b={b}: {ms:.3f} ms/batch, "
+                 f"{b / ms * 1e3:.2f} frames/s (device-resident frames; cable_px "
+                 f"{outn.cable_px[:4].tolist()}...)")
+            del model, nstep
+        timings[name] = rec_t
+    return cc_rec, counts, checks, timings
+
+
+def _route_name(state0) -> str:
+    """B1's route for the plane of `state0`: "cluster8", "cluster16" or
+    "global"."""
+    from unet_tpu_torch.ops import cc_kernels
+
+    which, K = cc_kernels.route(*state0.shape[-2:])
+    return f"{which}{K or ''}"
+
+
+def _gate_rows(step, cfg, src, ecfg, batch):
+    """skipped.csv, events.csv and confirmed_defects.csv rows of the engine
+    over the image directory `src`, made from `step` directly: batches of
+    `batch` as the reader gives them, each with the previous batch's last
+    valid frame (the first batch's own first frame), through the host's
+    FrameQualityGate and DefectTracker as the engine runs them."""
+    from unet_tpu_torch.inspect import DefectTracker, FrameQualityGate
+    from unet_tpu_torch.io.video import ImageDirReader
+    from unet_tpu_torch.pipeline.engine import CLASS_NAMES
+
+    gate = FrameQualityGate(True, ecfg.quality_blur_th, ecfg.quality_flat_th,
+                            ecfg.quality_motion_th, ecfg.quality_glitch_flat_th)
+    tracker = (DefectTracker(ecfg.tracker_confirm_frames, ecfg.tracker_iou,
+                             ecfg.tracker_stale_frames, CLASS_NAMES)
+               if ecfg.tracker_enabled else None)
+    skipped, events, confirmed, prev_last = [], [], [], None
+    for ids, frames, n_valid in ImageDirReader(src).batches(batch):
+        prev = frames[:1] if prev_last is None else prev_last
+        prev_last = frames[n_valid - 1:n_valid].copy()
+        out = step(frames, prev)
+        rows = _events_rows(out, ids, n_valid, cfg)
+        q = [t.cpu().numpy() for t in out.quality]
+        c = {f: getattr(out.defect_components, f).cpu().numpy()
+             for f in out.defect_components._fields} if tracker else None
+        for i in range(n_valid):
+            r = gate.check(float(q[0][i]), float(q[1][i]), float(q[2][i]))
+            if r.is_bad:
+                skipped.append([str(ids[i]), r.reason, f"{r.lap_var:.2f}", f"{r.gray_std:.2f}",
+                                f"{r.mad:.2f}"])
+                continue
+            events.append(rows[i])
+            if tracker is not None:
+                dets = [{"class_id": int(c["class_id"][i, k]),
+                         "bbox": (float(c["left"][i, k]), float(c["top"][i, k]),
+                                  float(c["left"][i, k] + c["width"][i, k]),
+                                  float(c["top"][i, k] + c["height"][i, k])),
+                         "area": int(c["area"][i, k])}
+                        for k in range(c["valid"].shape[-1]) if c["valid"][i, k]]
+                confirmed += [[str(d["defect_id"]), d["type"], str(d["class_id"]),
+                               str(d["start_frame"]), str(d["duration"]), str(d["area"]),
+                               f"{d['confidence']:.2f}"] for d in tracker.update(dets, ids[i])]
+    return skipped, events, confirmed
+
+
+def phase_inspect_engine(H=448, W=800, n_frames=48, batch=8, device="cuda"):
+    """`optimized` and `video_full` through `InferenceEngine` on `device`
+    with the 7-class colour->class model over `n_frames` HxW .bmp frames of
+    `gate_scenes` (flat, blurred and frozen frames among scenes whose defect
+    patches persist): each run counted alone (B1 as PRESET_B1 says for each
+    batch), and every skipped.csv, events.csv and confirmed_defects.csv row
+    equal to the step's own through the host's gate and tracker
+    (`_gate_rows`), skipped.csv's numbers within 1e-4 relative or their
+    last printed digit. Returns ({path: launch counts per batch}, record)."""
+    import tempfile
+
+    from unet_tpu_torch.pipeline import (EngineConfig, InferenceEngine, engine_hints, presets,
+                                         stages)
+
+    counts, record = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gate_") as tmp:
+        tmp = Path(tmp)
+        src = write_bmp_dir(tmp / "frames", gate_scenes(n_frames, H, W, seed=3))
+        for name in ("optimized", "video_full"):
+            cfg = presets.get_preset(name)
+            ecfg = EngineConfig(**dict(engine_hints(name), batch=batch, write_video=False,
+                                       print_interval=10 ** 6, output_dir=str(tmp / name)))
+            eng = InferenceEngine(ColourDefectModel(7), cfg, ecfg, device=device)
+            _zero_counts()
+            summary = eng.process_video(src)
+            got = _read_counts()
+            nb = -(-summary["processed"] // batch)
+            per = _per_batch(got, nb, f"engine {name}")
+            k8, k16 = PRESET_B1[name] if torch.device(device).type == "cuda" else (0, 0)
+            if (per["cc_propagate_cluster8"], per["cc_propagate_cluster16"]) != (k8, k16):
+                raise AssertionError(f"engine {name}: launches per batch {per}, expected "
+                                     f"{(k8, k16)} on clusters of 8 and 16")
+            step = stages.build_step(eng.model, cfg, device=device)
+            skipped, events, confirmed = _gate_rows(step, cfg, src, ecfg, batch)
+            out = tmp / name
+            got_sk = _read_csv(out / "skipped.csv")
+            if [r[:2] for r in got_sk] != [r[:2] for r in skipped]:
+                raise AssertionError(f"engine {name}: skipped.csv frames or reasons differ "
+                                     f"from the step's: {got_sk} vs {skipped}")
+            for g, w in zip(got_sk, skipped):
+                for a, b in zip(g[2:], w[2:]):
+                    if not abs(float(a) - float(b)) <= max(QUALITY_RTOL * abs(float(b)), 0.01):
+                        raise AssertionError(f"engine {name}: skipped.csv row {g} vs {w}")
+            if _read_csv(out / "events.csv") != events:
+                raise AssertionError(f"engine {name}: events.csv differs from the step's")
+            if ecfg.tracker_enabled and _read_csv(out / "confirmed_defects.csv") != confirmed:
+                raise AssertionError(f"engine {name}: confirmed_defects.csv differs from the "
+                                     f"step's")
+            reasons = sorted({r[1] for r in skipped})
+            if len(reasons) < 2 or (ecfg.tracker_enabled and len(confirmed) < 4):
+                raise AssertionError(f"engine {name}: reasons {reasons}, {len(confirmed)} "
+                                     f"confirmed defects")
+            counts[f"engine_{name}"] = per
+            record[name] = dict(launches=got, batches=nb, skipped=len(skipped),
+                                reasons=reasons, confirmed=len(confirmed),
+                                **{k: summary[k] for k in ("processed", "fps", "skipped_frames",
+                                                           "confirmed_defects")})
+            _log(f"main path (engine {name}, gate and tracker, {nb} batches of {batch}, "
+                 f"{W}x{H}): launches {got}; {len(skipped)} frames skipped ({reasons}), "
+                 f"{len(events)} events rows, {len(confirmed)} confirmed defects, all = the "
+                 f"step's; {summary['fps']} frames/s")
+    return counts, record
 
 
 class FrameListSource:
@@ -959,7 +1289,8 @@ ENGINE_PER_BATCH = {"two_stage_bf16": dict(cc_propagate=2, qconv=0),
                     "serve_wrap_7class": dict(cc_propagate=2, qconv=0),
                     # ROADMAP A8: the burr crop of the turned frames; debug has no B1 site
                     "high_res_roi": dict(cc_propagate=2, qconv=0),
-                    "debug": dict(cc_propagate=0, qconv=0)}
+                    "debug": dict(cc_propagate=0, qconv=0),
+                    "optimized": dict(cc_propagate=sum(PRESET_B1["optimized"]), qconv=0)}
 
 
 def _events_rows(out, ids, n_valid, cfg):
@@ -1030,12 +1361,20 @@ def engine_run(path: str, src: str, pth: str, flags, out, device="cuda", batch: 
     rows = []
     for ids, frames, n_valid in ImageDirReader(src).batches(batch):
         rows += _events_rows(step(frames), ids, n_valid, eng.cfg)
+    if eng.quality_gate is not None:
+        # the frames the gate skipped have no events row (phase_inspect_engine
+        # holds the gate itself against the step)
+        skipped = {r[0] for r in _read_csv(out / "skipped.csv")}
+        rows = [r for r in rows if r[0] not in skipped]
     if _read_csv(out / "events.csv") != rows:
         raise AssertionError(f"cli infer {path}: events.csv differs from the step's")
     files = sorted(str(p.relative_to(out)) for p in out.rglob("*") if p.is_file())
     if eng.ecfg.wrap_monitor_enabled and "wrap_uniformity.csv" not in files:
         raise AssertionError(f"cli infer {path} wrote no wrap_uniformity.csv")
-    if eng.ecfg.window_enabled and summary["total_windows"] == 0:
+    # a window closes at the latest after window_max_frames frames (the
+    # frames the gate skipped do not count)
+    if (eng.ecfg.window_enabled and summary["total_windows"] == 0
+            and summary["processed"] - summary["skipped_frames"] >= eng.ecfg.window_max_frames):
         raise AssertionError(f"cli infer {path} closed no window")
     _log(f"main path (engine, cli infer {' '.join(flags)}, {nb} batches of {batch}): "
          f"launches {got}; events.csv = the step's on {summary['processed']} frames; "
@@ -1081,18 +1420,20 @@ def phase_engine(H=448, W=800, n_frames=96, timing_frames=2048, timing_distinct=
         t = time.time()
         two = write_bmp_dir(tmp / "two_stage", synthetic_frames(n_frames, H, W, seed=0))
         wrap = write_bmp_dir(tmp / "wrap", wrap_scenes(n_frames, H, W, seed=0))
+        gate = write_bmp_dir(tmp / "gate", gate_scenes(n_frames // 2, H, W, seed=0))
         pth = {}
         for k in (3, 4, 7):
             pth[k] = str(tmp / f"nested_unet_{k}.pth")
             torch.save(seeded_nested_unet(num_classes=k).state_dict(), pth[k])
-        _log(f"engine: {2 * n_frames} {W}x{H} .bmp frames and 3 seeded .pth written in "
+        _log(f"engine: {2 * n_frames + n_frames // 2} {W}x{H} .bmp frames and 3 seeded .pth written in "
              f"{time.time() - t:.1f} s")
 
         for path, (src, k, flags) in {
                 "two_stage_bf16": (two, 3, ["--preset", "two_stage"]),
                 "two_stage_int8": (two, 3, ["--preset", "two_stage", "--int8"]),
                 "wrap_uniformity": (wrap, 4, ["--preset", "wrap_uniformity"]),
-                "production": (two, 3, ["--preset", "production"])}.items():
+                "production": (two, 3, ["--preset", "production"]),
+                "optimized": (gate, 7, ["--preset", "optimized"])}.items():
             counts[f"engine_{path}"], record["runs"][path] = engine_run(
                 path, src, pth[k], flags + size, tmp / f"out_{path}", device)
 
@@ -1302,9 +1643,10 @@ def _profile_step(step, frames, step_ms: float, what: str) -> None:
     busy = sum(dev(e) for e in evts)
     if busy <= 0:
         _log(f"profile ({what}): the profiler recorded no device time")
-        return
+        return None
+    idle = max(0.0, 1 - busy / 1e3 / step_ms)
     _log(f"profile ({what}, one b={frames.shape[0]} step): device busy {busy / 1e3:.3f} ms "
-         f"of {step_ms:.3f} ms per step, idle share {max(0.0, 1 - busy / 1e3 / step_ms):.4f}")
+         f"of {step_ms:.3f} ms per step, idle share {idle:.4f}")
     for name in ("nlm_kernel", "cc_propagate_cluster_kernel", "cc_propagate_global_kernel",
                  "qconv_wgmma_kernel", "qconv_c3_kernel", "qconv_sync_kernel"):
         t = sum(dev(e) for e in evts if name in e.key)
@@ -1312,6 +1654,7 @@ def _profile_step(step, frames, step_ms: float, what: str) -> None:
         _log(f"  {name}: {t / 1e3:.3f} ms x{calls}, {t / busy:.4f} of device busy time")
     for e in sorted(evts, key=dev, reverse=True)[:12]:
         _log(f"  {dev(e) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    return dict(busy_ms=busy / 1e3, idle_share=idle)
 
 
 def _time_step(step, frames, reps: int = 5) -> float:
@@ -1668,7 +2011,8 @@ def main() -> int:
               "three_class_full": dict(b1(0, 2), nlm=0, **q0),
               # burr (2 on its crop) + cable and tape labels + defect analysis
               # (holes, tape, cable count), all at 448x800
-              "production": dict(b1(2, 5), nlm=0, **q0)}
+              "production": dict(b1(2, 5), nlm=0, **q0),
+              **{p: dict(b1(*PRESET_B1[p]), nlm=0, **q0) for p in PRESET_PATHS}}
     scenes = {"two_stage": lambda b, seed: synthetic_frames(b, H, W, seed=seed),
               "enhanced": lambda b, seed: enhanced_scenes(b, H, W, seed=seed)}
 
@@ -1716,8 +2060,21 @@ def main() -> int:
     cc_rec.update(geo_rec)
     counts.update(geo_counts)
 
+    # -- the eight presets of the threshold modes, the postprocess, the
+    # letterbox and dynamic ROI, the quality gate and the tracker
+    pre_rec, pre_counts, pre_checks, pre_timings = phase_presets(
+        {p: presets.get_preset(p) for p in PRESET_PATHS}, expect, H, W)
+    counts.update(pre_counts)
+    # B1's new sites, one input each into the kernel-vs-plain comparisons
+    new_sites = {k: v for k, v in pre_rec.items() if k in (
+        "spatial/label 1 (spatial_strip_filter)", "roi_first/hysteresis (detect_vertical_roi)",
+        "roi_first/label 1 (refine_mask_by_geometry)", "robust/label 1 (filter_cable_by_shape)",
+        "robust/label 2 (largest_component)", "optimized/label 6 (defect_components)")}
+    if len(new_sites) != 6:
+        raise AssertionError(f"new B1 sites not recorded: {sorted(pre_rec)}")
+
     # -- kernels against their plain versions, and their times
-    cc_launch, cc_err = phase_cc(cc_rec)
+    cc_launch, cc_err = phase_cc({**cc_rec, **new_sites})
     cc_trace = trace_cc(cc_rec)
     cc_batches = trace_cc_batches(cc_rec)
     nlm_launch, nlm_err = phase_nlm(nlm_rec, sms, clock_mhz * 1e6)
@@ -1791,8 +2148,11 @@ def main() -> int:
     timings.update(low)
     q_launch, q_err = phase_qconv(q_rec)
 
-    # -- the product loop: the port's CLI over .bmp directories
+    # -- the product loop: the port's CLI over .bmp directories, then the
+    # quality gate and the defect tracker through the engine
     engine_counts, engine = phase_engine()
+    gate_counts, gate_engine = phase_inspect_engine(H, W)
+    engine_counts.update(gate_counts)
 
     # the mma.sync kernel has no main-path launch (conv0_0.conv1 takes the c3
     # kernel): its entry holds its time forced at that site, the c3 kernel's
@@ -1846,7 +2206,8 @@ def main() -> int:
     ], "slice_ms_per_batch": timings, "geometry_colour_ms_per_batch": geo_timings,
         "wrap_uniformity_server": serve,
         "geometry_checks": geo_checks, "upsample_b8": upsample, "int8_checks": int8_checks,
-        "engine": engine,
+        "presets_b8": pre_timings, "preset_checks": pre_checks,
+        "engine": engine, "inspect_engine": gate_engine,
         "card": card, "seconds": round(time.time() - t_start, 1)}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -130,8 +130,6 @@ def test_what_is_not_ported_names_its_item(data, tmp_path):
             (base + ["--config", "p.yaml"], "A12"),
             (base + ["--arch", "simple_unet"], "A13"),
             (base + ["--model", str(tmp_path)], "A15"),
-            (base + ["--preset", "video_full"], "A11"),
-            (base + ["--preset", "optimized"], "A11"),
             (["train", "--recipe", "3class_advanced", "--data-root", "x"], "A14"),
             (["evaluate", "--data-root", "x"], "A14"),
             (["tools", "audit"], "A14"),
@@ -173,7 +171,7 @@ def test_chip_smoke_engine_phase_runs_on_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     counts, rec = cs.phase_engine(H=64, W=96, n_frames=12, timing_frames=8, timing_distinct=4,
                                   batches=(4,), timed_calls=2, model_size=32, device="cpu")
-    paths = ("two_stage_bf16", "two_stage_int8", "wrap_uniformity", "production",
+    paths = ("two_stage_bf16", "two_stage_int8", "wrap_uniformity", "production", "optimized",
              "serve_wrap_7class")
     assert set(counts) == {f"engine_{p}" for p in paths}
     assert all(v == 0 for c in counts.values() for v in c.values())

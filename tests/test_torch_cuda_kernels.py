@@ -483,6 +483,96 @@ def test_geometry_presets_on_the_card_equal_the_cpu(card, name):
     assert float(got.diameters.dc_px.min()) > 0
 
 
+NEW_PRESETS = ("video_full", "optimized", "simple_7class", "strict", "v3_high_quality",
+               "robust", "spatial", "roi_first")
+
+
+def _preset_case(name, b=2):
+    """(config, colour->class model, 448x800 frames) of one of the eight
+    threshold, postprocess and tracking presets (chip_smoke.preset_scenes)."""
+    from chip_smoke import preset_colour_model, preset_scenes
+
+    cfg = presets.get_preset(name)
+    return cfg, preset_colour_model(cfg.segment.num_classes), preset_scenes(name, b, 448, 800, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", NEW_PRESETS)
+def test_cc_new_preset_sites_match_plain(card, name):
+    """B1 at every site of the preset's step, on the inputs the step gives
+    it (recorded on the CPU): 512x512 labels (spatial, roi_first: a cluster
+    of 8), the 448x800 hysteresis of detect_vertical_roi and the 448x800
+    labels of robust's shape postprocess and of the defect tracker (a
+    cluster of 16), bit for bit with the plain version at max_iters 1, 2
+    and the site's own."""
+    cfg, model, frames = _preset_case(name, b=1)
+    calls = []
+    real = cc_kernels.propagate
+
+    def spy(state0, fg, **kw):
+        calls.append((state0.clone(), fg.clone(), kw))
+        return real(state0, fg, **kw)
+
+    cc_kernels.propagate = spy
+    try:
+        stages.build_step(model, cfg, device="cpu")(frames)
+    finally:
+        cc_kernels.propagate = real
+    assert calls
+    for state0, fg, kw in calls:
+        state0, fg = state0.to(card), fg.to(card)
+        _, K = cc_kernels.route(*state0.shape[-2:])
+        for max_iters in sorted({1, 2, kw["max_iters"]}):
+            k = dict(kw, max_iters=max_iters)
+            before = cc_kernels.launches_per_cluster[K]
+            got = cc_kernels.propagate(state0, fg, **k)
+            assert cc_kernels.launches_per_cluster[K] == before + 1
+            assert torch.equal(got, cc_kernels.propagate_plain(state0, fg, **k)), (name, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", NEW_PRESETS)
+def test_new_presets_on_the_card_equal_the_cpu(card, name):
+    """The preset's step with its colour->class model on 448x800 frames,
+    card against CPU (chip_smoke's comparison: integers equal, floats within
+    1e-4, quality statistics within 1e-4 relative), with B1's launches per
+    cluster size (chip_smoke.PRESET_B1)."""
+    from chip_smoke import PRESET_B1, _compare_outputs
+
+    cfg, model, frames = _preset_case(name)
+    prev = frames[1:2] if cfg.inspect.quality_stats else None
+    before = dict(cc_kernels.launches_per_cluster)
+    got = stages.build_step(model, cfg, device=card)(frames, prev)
+    torch.cuda.synchronize()
+    took = {K: cc_kernels.launches_per_cluster[K] - before[K] for K in before}
+    assert took == dict(zip((8, 16), PRESET_B1[name]))
+    want = stages.build_step(model, cfg, device="cpu")(frames, prev)
+    _compare_outputs(got, want, name)
+    assert int(got.cable_px.min()) > 0 and int(got.tape_px.min()) > 0
+
+
+@pytest.mark.cuda
+def test_sliding_window_on_the_card_equals_the_cpu(card):
+    """Sliding-window inference with a seeded 2-class NestedUNet on a
+    448x800 frame, card against CPU (probabilities within 1e-3, the logits'
+    gate), then the hysteresis and the component filter (B1 labels) on the
+    same probabilities, bit for bit."""
+    from chip_smoke import defect_scenes
+    from unet_tpu_torch.pipeline import sliding_window as sw
+
+    img = defect_scenes(1, 448, 800, seed=4, classes=1)[0]
+    model = seeded_nested_unet(num_classes=2)
+    got = sw.SlidingWindowInference(model, device=card).predict(img)
+    want = sw.SlidingWindowInference(model, device="cpu").predict(img)
+    np.testing.assert_allclose(got, want, atol=1e-3, rtol=0)
+    pm = torch.from_numpy(np.ascontiguousarray(want[..., 1]))[None]
+    hyst = sw.apply_hysteresis(pm, 0.6, 0.4)
+    before = cc_kernels.launches
+    kept = sw.filter_by_cc_and_prob(hyst.to(card), pm.to(card), 5, 0.5)
+    assert cc_kernels.launches == before + 1
+    assert torch.equal(kept.cpu(), sw.filter_by_cc_and_prob(hyst, pm, 5, 0.5))
+
+
 @pytest.mark.cuda
 def test_multistream_server_on_the_card(card):
     """The server on the card: each (stream, frame) once, with the result

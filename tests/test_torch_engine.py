@@ -271,9 +271,14 @@ def test_a_failing_stage_raises_instead_of_hanging(dirs, tmp_path, monkeypatch, 
 
 
 def test_engine_refuses_cuda_without_a_card_and_unported_consumers(tmp_path):
+    """The quality gate and the tracker are ported; like the JAX engine's,
+    each refuses a step that does not compute its statistics."""
     cfg = _stub_cfg(pipeline)
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="quality_stats"):
         InferenceEngine(_Stub(holey_tape_mask(), 3), cfg, EngineConfig(quality_enabled=True),
+                        device="cpu")
+    with pytest.raises(ValueError, match="track_defects"):
+        InferenceEngine(_Stub(holey_tape_mask(), 3), cfg, EngineConfig(tracker_enabled=True),
                         device="cpu")
     if torch.cuda.is_available():
         pytest.skip("a card is present")

@@ -154,10 +154,11 @@ def test_enhanced_colour_model_matches_jax(seed, denoise):
 
 
 def test_unported_branches_raise():
+    """Every preset builds; what raises is a denoiser the JAX package does
+    not have (A9) and the ResNet50 encoder (A13)."""
     model = ColourClassModel()
     for name in ("video_full", "strict", "robust", "spatial", "roi_first"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            stages.build_step(model, presets.get_preset(name), device="cpu")
+        stages.build_step(model, presets.get_preset(name), device="cpu")
     with pytest.raises(NotImplementedError, match="A9"):
         stages.build_step(model, presets.enhanced(denoise="median"), device="cpu")
     with pytest.raises(NotImplementedError, match="A13"):

@@ -138,9 +138,6 @@ def infer_engine(args):
         raise SystemExit("--config: pipeline YAML files (core/config.load_pipeline_yaml) are "
                          "ROADMAP A12; use --preset")
     hints = engine_hints(args.preset)
-    if hints.get("quality_enabled") or hints.get("tracker_enabled"):
-        raise SystemExit(f"--preset {args.preset}: the frame quality gate and the defect "
-                         f"tracker are ROADMAP A11")
     preset_kwargs = {}
     if args.preset == "two_stage":
         preset_kwargs = dict(sensitivity=args.burr_sensitivity, rotate=args.rotate,

@@ -1,9 +1,8 @@
 """Inspection decisions of the port (counterpart of unet_tpu/inspect):
 window aggregation and OK/NG rules, the simple metrics decision, the
 wrap-uniformity monitor, the event detector and gate, the defect tracker and
-the frame quality gate with its statistics (`quality_stats`). The step does
-not compute the quality statistics or the defect components yet (ROADMAP
-A11), so the engine's quality gate and tracker cannot be switched on."""
+the frame quality gate with its statistics (`quality_stats`), which the
+step computes on the device (`pipeline.stages.quality_stats`)."""
 from unet_tpu_torch.inspect.window import (  # noqa: F401
     FrameResult, WindowStatistics, WindowAggregator, ThresholdConfig,
     DecisionResult, make_decision)

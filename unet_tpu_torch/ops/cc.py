@@ -209,6 +209,17 @@ def keep_mask(labels: torch.Tensor, stats: ComponentStats, keep: torch.Tensor) -
     return out.reshape(lead + (H, W))
 
 
+def component_any(labels: torch.Tensor, flags: torch.Tensor) -> torch.Tensor:
+    """True at every pixel of (..., H, W) `labels` whose component holds a
+    pixel set in `flags` (the hysteresis primitive of ops.edges)."""
+    lead = labels.shape[:-2]
+    H, W = labels.shape[-2:]
+    bins, fg = _scatter_bins(labels.reshape(-1, H, W))
+    hit = torch.zeros(bins.shape, dtype=torch.int32, device=bins.device)
+    hit.scatter_reduce_(1, bins, (flags.reshape(bins.shape) & fg).to(torch.int32), "amax")
+    return (hit.gather(1, bins).to(torch.bool) & fg).reshape(lead + (H, W))
+
+
 def largest_component(mask: torch.Tensor, min_area: int = 0, connectivity: int = 8,
                       max_iters: int = 64) -> torch.Tensor:
     """Largest connected component of a (..., H, W) binary mask; all False

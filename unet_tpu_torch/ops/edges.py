@@ -1,5 +1,5 @@
-"""Sobel, Laplacian and Canny with hysteresis (counterpart of
-unet_tpu/ops/edges.py:38-120, 127-245).
+"""Sobel, Laplacian, difference of Gaussians and Canny with hysteresis
+(counterpart of unet_tpu/ops/edges.py:38-120, 127-245).
 
 OpenCV parity, as in the reference:
   * cv2.Sobel / cv2.Laplacian use BORDER_REFLECT_101 and return float32
@@ -87,6 +87,15 @@ _LAP_K3 = np.array([[2, 0, 2], [0, -8, 0], [2, 0, 2]], dtype=np.float32)
 def laplacian(img: torch.Tensor, ksize: int = 1) -> torch.Tensor:
     """cv2.Laplacian(..., CV_64F), REFLECT_101 border, float32 out."""
     return _image.filter2d(img, {1: _LAP_K1, 3: _LAP_K3}[ksize], channel_dim=False)
+
+
+def dog(img: torch.Tensor, ksize1: int = 3, sigma1: float = 1.0,
+        ksize2: int = 7, sigma2: float = 2.0) -> torch.Tensor:
+    """Difference of Gaussians of uint8 blurs, saturated at 0 as
+    cv2.subtract does (reference src/refactor/burr_detector.py:93-96)."""
+    b1 = torch.clamp(torch.round(_image.gaussian_blur(img, ksize1, sigma1, channel_dim=False)), 0, 255)
+    b2 = torch.clamp(torch.round(_image.gaussian_blur(img, ksize2, sigma2, channel_dim=False)), 0, 255)
+    return torch.clamp(b1 - b2, min=0)
 
 
 def uint8_wrap(x: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Geometric and filtering image ops with OpenCV-matching semantics
-(counterpart of unet_tpu/ops/image.py:32-92, 95-134, 163-168, 219-313,
-325-355). The fp32 NestedUNet's decoder upsamples with F.interpolate
+(counterpart of unet_tpu/ops/image.py:32-92, 95-134, 163-216, 219-313,
+325-446). The fp32 NestedUNet's decoder upsamples with F.interpolate
 (models/unetpp.py); the bf16 and int8 forwards with
 `upsample2x_align_corners`.
 
@@ -157,6 +157,44 @@ def rotate90_ccw(img: torch.Tensor, channel_dim: bool = None) -> torch.Tensor:
     return img.transpose(h_ax, h_ax + 1).flip(h_ax)
 
 
+def rotate90_cw(img: torch.Tensor, channel_dim: bool = None) -> torch.Tensor:
+    """cv2.ROTATE_90_CLOCKWISE."""
+    h_ax = _channel_axes(img, channel_dim)
+    return img.transpose(h_ax, h_ax + 1).flip(h_ax + 1)
+
+
+def letterbox_params(src_hw: Sequence[int], dst_hw: Sequence[int]):
+    """Aspect-preserving resize geometry (reference
+    src/refactor/preprocess.py:147-172, infer_video_robust.py:40-61):
+    (new_h, new_w, pad_top, pad_left)."""
+    sh, sw = src_hw
+    dh, dw = dst_hw
+    scale = min(dh / sh, dw / sw)
+    new_h, new_w = int(round(sh * scale)), int(round(sw * scale))
+    return new_h, new_w, (dh - new_h) // 2, (dw - new_w) // 2
+
+
+def letterbox(img: torch.Tensor, dst_hw: Sequence[int], pad_value: float = 0.0,
+              channel_dim: bool = None) -> torch.Tensor:
+    """Resize keeping the aspect, then centre-pad to `dst_hw`."""
+    h_ax = _channel_axes(img, channel_dim)
+    new_h, new_w, pt, pl = letterbox_params(img.shape[h_ax:h_ax + 2], dst_hw)
+    x = resize_bilinear(img, (new_h, new_w), channel_dim)
+    out = torch.full(img.shape[:h_ax] + (int(dst_hw[0]), int(dst_hw[1])) + img.shape[h_ax + 2:],
+                     pad_value, dtype=x.dtype, device=x.device)
+    out.narrow(h_ax, pt, new_h).narrow(h_ax + 1, pl, new_w).copy_(x)
+    return out
+
+
+def unletterbox_mask(mask: torch.Tensor, src_hw: Sequence[int],
+                     dst_hw: Sequence[int]) -> torch.Tensor:
+    """Inverse of `letterbox` for an (..., H, W) mask at `dst_hw`: the
+    content region, nearest-resized back to `src_hw`."""
+    new_h, new_w, pt, pl = letterbox_params(src_hw, mask.shape[-2:])
+    crop = mask[..., pt:pt + new_h, pl:pl + new_w]
+    return resize_nearest(crop, src_hw, channel_dim=False)
+
+
 # ---------------------------------------------------------------------------
 # separable filters
 # ---------------------------------------------------------------------------
@@ -287,3 +325,155 @@ def bilateral_filter(img: torch.Tensor, d: int = 7, sigma_color: float = 25.0,
             num = num + w * nb
             den = den + w
     return num / den
+
+
+# ---------------------------------------------------------------------------
+# dynamic horizontal crop / resize (the roi_first preset)
+# ---------------------------------------------------------------------------
+
+def _crop_rows(H: int, oh: int):
+    """Row taps of `crop_resize_bilinear`, in float32 as the JAX package
+    computes them: src = (i + 0.5) * float32(H / oh) - 0.5."""
+    ys = (np.arange(oh, dtype=np.float32) + np.float32(0.5)) * np.float32(H / oh) - np.float32(0.5)
+    y0 = np.clip(np.floor(ys).astype(np.int64), 0, H - 1)
+    wy = np.clip(ys - y0.astype(np.float32), np.float32(0), np.float32(1))
+    return y0, np.minimum(y0 + 1, H - 1), wy
+
+
+def crop_resize_bilinear(img: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor,
+                         out_hw: Sequence[int]) -> torch.Tensor:
+    """Per-image horizontal crop [x0, x1) of (B, H, W, C) `img`, resized to
+    `out_hw` with bilinear taps (src = (dst + 0.5) * scale - 0.5), the
+    columns clamped to the crop, as cv2.resize of a numpy crop replicates
+    its edge columns (reference infer_video_roi.py:201-209). x0, x1: (B,)
+    int tensors on the device, so the box never reaches the host.
+
+    The arithmetic is the jitted JAX function's on the CPU, where XLA
+    computes span / ow as span * float32(1 / ow) and contracts products
+    into sums: the source column is fma(i + 0.5, scale, -0.5) + x0 and each
+    lerp fma(p, 1 - w, q * w), a fused multiply-add emulated in float64
+    (one rounding to float32)."""
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    B, H, W, C = img.shape
+    y0, y1, wy = _table(_crop_rows, H, oh, img.device)
+    a = x0.to(torch.int64)[:, None]
+    b = x1.to(torch.int64)[:, None]
+    span = torch.clamp((b - a).to(torch.float32), min=1.0)
+    t = torch.arange(ow, dtype=torch.float32, device=img.device) + 0.5
+    xs = (t.double() * (span * recip32(ow)).double() - 0.5).to(torch.float32) + a.to(torch.float32)
+    lo = a.clamp(0, W - 1)
+    hi = torch.maximum(torch.minimum(b - 1, torch.full_like(b, W - 1)), lo)
+    c0 = torch.minimum(torch.maximum(torch.floor(xs).to(torch.int64), lo), hi)
+    c1 = torch.minimum(c0 + 1, hi)
+    wx = torch.clamp(xs - c0.to(torch.float32), 0.0, 1.0)[:, None, :, None]
+    x = img.to(torch.float32)
+
+    def tap(rows, cols):
+        r = x.index_select(1, rows)                               # (B, oh, W, C)
+        return r.gather(2, cols[:, None, :, None].expand(B, oh, ow, C))
+
+    def lerp(p, q, w):
+        return (p.double() * (1 - w).double() + (q * w).double()).to(torch.float32)
+
+    top = lerp(tap(y0, c0), tap(y0, c1), wx)
+    bot = lerp(tap(y1, c0), tap(y1, c1), wx)
+    return lerp(top, bot, wy[None, :, None, None])
+
+
+def _nearest_rows(oh: int, mh: int):
+    return (np.minimum(np.arange(oh) * mh // oh, mh - 1).astype(np.int64),)
+
+
+def uncrop_resize_nearest(mask: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor,
+                          out_hw: Sequence[int]) -> torch.Tensor:
+    """Inverse of `crop_resize_bilinear` for (B, mh, mw) bool masks: each
+    mask nearest-resized into the [x0, x1) span of an empty (oh, ow) frame
+    (reference infer_video_roi.py:238-247). Source columns are
+    floor((ox - x0) * mw / span), a floor division also left of the box."""
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    mh, mw = mask.shape[-2:]
+    rows = _table(_nearest_rows, oh, mh, mask.device)[0]
+    a = x0.to(torch.int64)[:, None]
+    b = x1.to(torch.int64)[:, None]
+    ox = torch.arange(ow, dtype=torch.int64, device=mask.device)[None]
+    span = torch.clamp(b - a, min=1)
+    cols = torch.clamp(torch.div((ox - a) * mw, span, rounding_mode="floor"), 0, mw - 1)
+    out = mask.index_select(1, rows).gather(
+        2, cols[:, None, :].expand(mask.shape[0], oh, ow))
+    return out & ((ox >= a) & (ox < b))[:, None, :]
+
+
+def _box_tree(v):
+    """Sum of 1, 2, 4 or 8 float32 tensors as XLA's CPU dot reduces a
+    vector: pairs (0, 1), (2, 3), ..., then pairs of pairs, the halves
+    {0, 1, 4, 5} and {2, 3, 6, 7} last."""
+    while len(v) > 2:
+        pairs = [v[i] + v[i + 1] for i in range(0, len(v), 2)]
+        h = len(pairs) // 2
+        v = [pairs[i] + pairs[i + h] for i in range(h)] if len(pairs) > 2 else pairs
+    return v[0] + v[1] if len(v) == 2 else v[0]
+
+
+def box_smooth_same(x: torch.Tensor, n: int) -> torch.Tensor:
+    """jnp.convolve(x, ones(n) / n, "same") along the last axis of a float32
+    tensor of INTEGER values (detect_vertical_roi's column counts), with
+    numpy's alignment (pad n // 2 before, n - 1 - n // 2 after) and, bit for
+    bit, the float32 sums of the JAX package's jitted convolution on the
+    CPU: each tap x * float32(1 / n) rounded; the first 16 * (n // 16)
+    taps in 8 lanes, lane l starting at tap l and adding taps l + 8, l +
+    16, ... with a fused multiply-add each, then reduced as a vector; the
+    rest in blocks of 8, 4, 2 and 1 taps, each reduced as a vector; the
+    partial sums added in that order. A fused multiply-add is a float64
+    product and sum rounded once, exact for integer inputs below 2**20."""
+    k = np.float32(1.0) / np.float32(n)
+    W = x.shape[-1]
+    xp = torch.nn.functional.pad(x.to(torch.float32), (n // 2, n - 1 - n // 2))
+    tap = lambda t: xp[..., t:t + W]
+    prod = lambda t: tap(t) * float(k)
+    parts, t = [], 0
+    main = 16 * (n // 16)
+    if main:
+        lanes = []
+        for l in range(8):
+            acc = prod(l)
+            for c in range(l + 8, main, 8):
+                acc = (tap(c).double() * float(k) + acc.double()).to(torch.float32)
+            lanes.append(acc)
+        parts.append(_box_tree(lanes))
+        t = main
+    for size in (8, 4, 2, 1):
+        if n - t >= size:
+            parts.append(_box_tree([prod(t + i) for i in range(size)]))
+            t += size
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
+def detect_vertical_roi(gray: torch.Tensor, canny_low: float = 50.0,
+                        canny_high: float = 150.0, smooth: int = 30,
+                        rel_thresh: float = 0.3, margin_frac: float = 0.1):
+    """Per-frame [x0, x1) bounds of the vertical edge-density band
+    (reference detect_roi_by_projection, infer_video_roi.py:23-57): Canny
+    (kernel B1 for its hysteresis) -> per-column edge counts -> box
+    smoothing (`box_smooth_same`) -> columns above rel_thresh * max,
+    widened by margin_frac of the span; the central half where no column
+    clears the threshold. Returns (x0, x1), int32 (B,) tensors on the
+    device of `gray`."""
+    from unet_tpu_torch.ops import edges as _edges
+    e = _edges.canny(gray, canny_low, canny_high)
+    proj = e.sum(dim=-2, dtype=torch.int32).to(torch.float32)           # (B, W)
+    proj = box_smooth_same(proj, smooth)
+    thr = torch.amax(proj, dim=-1, keepdim=True) * rel_thresh
+    active = proj > thr
+    W = gray.shape[-1]
+    any_active = active.any(dim=-1)
+    x0 = torch.argmax(active.to(torch.uint8), dim=-1).to(torch.int32)
+    x1 = (W - torch.argmax(active.flip(-1).to(torch.uint8), dim=-1)).to(torch.int32)
+    m = ((x1 - x0).to(torch.float32) * margin_frac).to(torch.int32)
+    x0 = torch.clamp(x0 - m, min=0)
+    x1 = torch.clamp(x1 + m, max=W)
+    x0 = torch.where(any_active, x0, W // 4).to(torch.int32)
+    x1 = torch.where(any_active, x1, (3 * W) // 4).to(torch.int32)
+    return x0, x1

@@ -1,4 +1,4 @@
-"""Binary morphology (counterpart of unet_tpu/ops/morph.py:26-62, 91-188).
+"""Binary morphology (counterpart of unet_tpu/ops/morph.py:26-63, 91-198).
 
 Structuring elements replicate cv2.getStructuringElement bit for bit,
 including the MORPH_ELLIPSE rasterization. cv2's anchor is (kh//2, kw//2),
@@ -47,6 +47,14 @@ def structuring_element(shape: str, ksize: Sequence[int]) -> np.ndarray:
 
 def ellipse_kernel(w: int, h: int | None = None) -> np.ndarray:
     return structuring_element(ELLIPSE, (w, h if h is not None else w))
+
+
+def disk_kernel(radius: int) -> np.ndarray:
+    """Euclidean disk x^2 + y^2 <= r^2. Dilation by it thresholds the
+    Euclidean distance transform at `radius` (`ring_band`)."""
+    r = int(radius)
+    y, x = np.mgrid[-r:r + 1, -r:r + 1]
+    return (x * x + y * y <= r * r).astype(np.uint8)
 
 
 def _row_runs(se: np.ndarray):
@@ -118,3 +126,17 @@ def outer_band(mask: torch.Tensor, se: np.ndarray, iterations: int = 1) -> torch
     (reference infer_two_stage_burr.py:78-81)."""
     return torch.logical_and(dilate(mask, se, iterations),
                              torch.logical_not(mask.to(torch.bool)))
+
+
+def gradient(mask: torch.Tensor, se: np.ndarray) -> torch.Tensor:
+    """Morphological gradient: dilate & ~erode (the boundary band)."""
+    return torch.logical_and(dilate(mask, se), torch.logical_not(erode(mask, se)))
+
+
+def ring_band(mask: torch.Tensor, r_in: int, r_out: int) -> torch.Tensor:
+    """Pixels whose Euclidean distance to `mask` lies in (r_in, r_out]:
+    dilate(disk r_out) & ~dilate(disk r_in), the reference's
+    cv2.distanceTransform band (infer_video_robust.py:169-198)."""
+    outer = dilate(mask, disk_kernel(r_out))
+    inner = dilate(mask, disk_kernel(r_in)) if r_in > 0 else mask.to(torch.bool)
+    return torch.logical_and(outer, torch.logical_not(inner))

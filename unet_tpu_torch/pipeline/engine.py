@@ -17,9 +17,12 @@ before it reads them. Each thread names its stream. On the CPU
 Outputs, as the JAX engine's: events.csv (every frame's percentages and
 burr pixels), detector_events.csv, gated_events.csv, wrap_uniformity.csv,
 events/inspection_events.jsonl and the OK/NG images of window mode,
-windows/<id>/ evidence of NG windows, and result.mp4. The frame quality gate
-(skipped.csv) and the defect tracker (confirmed_defects.csv) need the
-step's quality statistics and defect components, which are ROADMAP A11.
+windows/<id>/ evidence of NG windows, result.mp4, and, from the step's
+quality statistics and defect components, the frame quality gate's
+skipped.csv and the defect tracker's confirmed_defects.csv. The quality
+statistics' first frame of a batch diffs against the previous batch's last
+valid frame (the first batch's against itself), which goes up from a
+pinned buffer of its own beside the frames'.
 """
 from __future__ import annotations
 
@@ -38,9 +41,10 @@ import numpy as np
 import torch
 
 from unet_tpu_torch.events.emitters import EventOutputConfig, InspectionEventLogger, _imwrite
-from unet_tpu_torch.inspect import (EventConfig, EventDetector, EventGate, FrameMetrics,
-                                    FrameResult, ThresholdConfig, WindowAggregator,
-                                    WrapUniformityMonitor, make_decision)
+from unet_tpu_torch.inspect import (DefectTracker, EventConfig, EventDetector, EventGate,
+                                    FrameMetrics, FrameQualityGate, FrameResult,
+                                    ThresholdConfig, WindowAggregator, WrapUniformityMonitor,
+                                    make_decision)
 from unet_tpu_torch.io.video import ImageDirReader, VideoReader, VideoWriter, _cv2
 from unet_tpu_torch.pipeline import stages
 from unet_tpu_torch.pipeline.config import PipelineCfg
@@ -67,9 +71,13 @@ class EngineConfig:
     # per-NG-window evidence dirs: every window frame + overlay +
     # window_info.json (reference infer_video_production.py:299-456)
     evidence_dirs: bool = False
-    # frame quality gate (reference infer_video.py:73-118); needs the step's
-    # quality statistics, ROADMAP A11
+    # frame quality gate (requires cfg.inspect.quality_stats; reference
+    # infer_video.py:73-118)
     quality_enabled: bool = False
+    quality_blur_th: float = 80.0
+    quality_flat_th: float = 8.0
+    quality_motion_th: float = 10.0
+    quality_glitch_flat_th: float = 3.0
     # consecutive-frame event detector with per-type cooldown (requires
     # cfg.geometry.enabled; reference src/refactor/event_detector.py:24-175)
     event_detector_enabled: bool = False
@@ -83,10 +91,12 @@ class EngineConfig:
     gate_cooldown_sec: float = 3.0
     gate_ratio_min: float = 1.05
     gate_ratio_max: float = 1.5
-    # IoU-matched multi-frame defect confirmation (reference
-    # infer_video_optimized.py:66-189); needs the step's defect components,
-    # ROADMAP A11
+    # IoU-matched multi-frame defect confirmation (requires
+    # cfg.inspect.track_defects; reference infer_video_optimized.py:66-189)
     tracker_enabled: bool = False
+    tracker_confirm_frames: int = 3
+    tracker_iou: float = 0.3
+    tracker_stale_frames: int = 10
     # wrap-uniformity monitor + CSV (requires cfg.geometry.enabled;
     # reference infer_wrap_uniformity.py:33-131)
     wrap_monitor_enabled: bool = False
@@ -142,10 +152,15 @@ class InferenceEngine:
         self.model = model
         self.cfg = cfg
         self.ecfg = e = engine_cfg or EngineConfig()
-        if e.quality_enabled or e.tracker_enabled:
-            raise NotImplementedError(
-                "the frame quality gate and the defect tracker read the step's quality "
-                "statistics and defect components: ROADMAP A11")
+        self.quality_gate: Optional[FrameQualityGate] = (
+            FrameQualityGate(True, e.quality_blur_th, e.quality_flat_th,
+                             e.quality_motion_th, e.quality_glitch_flat_th)
+            if e.quality_enabled else None)
+        if self.quality_gate is not None and not cfg.inspect.quality_stats:
+            raise ValueError("quality_enabled requires cfg.inspect.quality_stats "
+                             "(the gate's statistics come from the device step)")
+        if e.tracker_enabled and not cfg.inspect.track_defects:
+            raise ValueError("tracker_enabled requires cfg.inspect.track_defects")
         if e.event_gate_enabled and not cfg.geometry.enabled:
             raise ValueError("event_gate_enabled requires cfg.geometry.enabled "
                              "(abnormality comes from the wrap ratio)")
@@ -155,14 +170,18 @@ class InferenceEngine:
         if self._cuda:
             self._upload_stream = torch.cuda.Stream(self.device)
             self._dispatch_stream = torch.cuda.Stream(self.device)
-        # the detector and the gate carry frame-indexed state and are
-        # rebuilt for every video: frame ids restart with each one
+        # the detector, the tracker and the gate carry frame-indexed state
+        # and are rebuilt for every video: frame ids restart with each one
         self.event_detector: Optional[EventDetector] = None
+        self.tracker: Optional[DefectTracker] = None
         self.event_gate: Optional[EventGate] = None
 
     def _reset_per_video(self) -> None:
         e = self.ecfg
         self.event_detector = EventDetector(e.event_cfg) if e.event_detector_enabled else None
+        self.tracker = (DefectTracker(e.tracker_confirm_frames, e.tracker_iou,
+                                      e.tracker_stale_frames, CLASS_NAMES)
+                        if e.tracker_enabled else None)
         # the gate's cooldown runs on video time (frame_id / source fps), not
         # the wall clock, so that gated_events.csv does not depend on the
         # engine's throughput
@@ -188,20 +207,29 @@ class InferenceEngine:
         """The engine's card as the thread's current device (the CPU: nothing)."""
         return torch.cuda.device(self.device) if self._cuda else contextlib.nullcontext()
 
-    def _upload(self, frames: np.ndarray, pool: "_PinnedPool"):
-        """(B, H, W, 3) uint8 frames -> (tensor on the device, the copy's
-        event or None). On a card: copied into the pool's next pinned
-        buffer, then to the device on the upload stream."""
+    def _upload(self, frames: np.ndarray, pool: "_PinnedPool",
+                prev: Optional[np.ndarray] = None, prev_pool: Optional["_PinnedPool"] = None):
+        """(B, H, W, 3) uint8 frames, and the (1, H, W, 3) previous frame of
+        the quality statistics or None -> (frames on the device, previous
+        frame on the device or None, the copies' event or None). On a card:
+        each copied into its pool's next pinned buffer, then to the device
+        on the upload stream; a buffer is refilled only after the event of
+        its last copy."""
         if not self._cuda:
-            return torch.from_numpy(frames), None
-        buf = pool.take(frames.shape)
-        buf.numpy()[...] = frames
+            return (torch.from_numpy(frames),
+                    None if prev is None else torch.from_numpy(prev), None)
+        bufs = [(pool, frames)] + ([] if prev is None else [(prev_pool, prev)])
+        dev = []
         with torch.cuda.stream(self._upload_stream):
-            dev = buf.to(self.device, non_blocking=True)
+            for p, a in bufs:
+                buf = p.take(a.shape)
+                buf.numpy()[...] = a
+                dev.append(buf.to(self.device, non_blocking=True))
             done = torch.cuda.Event()
             done.record(self._upload_stream)
-        pool.copied(done)
-        return dev, done
+        for p, _ in bufs:
+            p.copied(done)
+        return dev[0], (dev[1] if prev is not None else None), done
 
     def _download(self, out: stages.FrameOutputs):
         """Every output of the step into host tensors: on a card, pinned
@@ -281,9 +309,22 @@ class InferenceEngine:
             roi = (r.x1, r.y1, r.x2, r.y2)
         roi_area = ((roi[2] - roi[0]) * (roi[3] - roi[1])) if roi else h * w
 
+        quality, comps = out.quality, out.defect_components
         for i in range(n_valid):
             fid = ids[i]
             state["processed"] += 1
+
+            if self.quality_gate is not None and quality is not None:
+                q = self.quality_gate.check(float(quality.lap_var[i]), float(quality.gray_std[i]),
+                                            float(quality.mad[i]))
+                if q.is_bad:
+                    state["skipped"].append([fid, q.reason, f"{q.lap_var:.2f}",
+                                             f"{q.gray_std:.2f}", f"{q.mad:.2f}"])
+                    if state["writer"] is not None:
+                        frame = self._host_preprocess(frames[i], (h, w))
+                        draw_hud(frame, [f"Frame: {fid} [SKIPPED] {q.reason}"])
+                        state["writer"].write(frame)
+                    continue
 
             cable_ratio = cable_px[i] / roi_area * 100
             tape_ratio = tape_px[i] / roi_area * 100
@@ -330,6 +371,16 @@ class InferenceEngine:
                     tape_coverage=tape_ratio / 100))
                 for name in fired:
                     state["detector_events"].append((fid, name))
+
+            if self.tracker is not None and comps is not None:
+                detections = [
+                    {"class_id": int(comps.class_id[i, k]),
+                     "bbox": (float(comps.left[i, k]), float(comps.top[i, k]),
+                              float(comps.left[i, k] + comps.width[i, k]),
+                              float(comps.top[i, k] + comps.height[i, k])),
+                     "area": int(comps.area[i, k])}
+                    for k in range(comps.valid.shape[-1]) if comps.valid[i, k]]
+                state["confirmed_defects"].extend(self.tracker.update(detections, fid))
 
             vis = None
             frame = None
@@ -393,8 +444,8 @@ class InferenceEngine:
         out_dir.mkdir(parents=True, exist_ok=True)
 
         state: Dict[str, Any] = {
-            "processed": 0, "burr_frames": 0, "csv_rows": [],
-            "detector_events": [], "wrap_events": [],
+            "processed": 0, "burr_frames": 0, "csv_rows": [], "skipped": [],
+            "detector_events": [], "wrap_events": [], "confirmed_defects": [],
             "gated_events": [], "window_frames": [], "batch_lat_ms": [],
             "legs": {"decode": 0.0, "upload": 0.0, "dispatch": 0.0,
                      "download": 0.0, "host": 0.0},
@@ -423,6 +474,11 @@ class InferenceEngine:
             wr.writerow(["frame_id", "cable_pct", "tape_pct", "burr_pct",
                          "burr_px", "status"])
             wr.writerows(state["csv_rows"])
+        if self.quality_gate is not None:
+            with open(out_dir / "skipped.csv", "w", newline="") as f:
+                wr = csv.writer(f)
+                wr.writerow(["frame_id", "reason", "lap_var", "gray_std", "mad"])
+                wr.writerows(state["skipped"])
         if self.event_detector is not None:
             with open(out_dir / "detector_events.csv", "w", newline="") as f:
                 wr = csv.writer(f)
@@ -433,6 +489,15 @@ class InferenceEngine:
                 wr = csv.writer(f)
                 wr.writerow(["frame_id", "event_type", "ratio", "has_burr"])
                 wr.writerows(state["gated_events"])
+        if self.tracker is not None:
+            with open(out_dir / "confirmed_defects.csv", "w", newline="") as f:
+                wr = csv.writer(f)
+                wr.writerow(["defect_id", "type", "class_id", "start_frame",
+                             "duration", "area", "confidence"])
+                for c in state["confirmed_defects"]:
+                    wr.writerow([c["defect_id"], c["type"], c["class_id"],
+                                 c["start_frame"], c["duration"], c["area"],
+                                 f"{c['confidence']:.2f}"])
 
         elapsed = time.time() - state["t0"]
         n = max(state["processed"], 1)
@@ -459,12 +524,10 @@ class InferenceEngine:
             # per-batch dispatch -> consumed latency percentiles (ms)
             "batch_latency_ms": batch_latency,
             "burr_frames": state["burr_frames"],
-            # the quality gate and the tracker are ROADMAP A11: none skipped
-            # or confirmed
-            "skipped_frames": 0,
+            "skipped_frames": len(state["skipped"]),
             "detector_events": len(state["detector_events"]),
             "gated_events": len(state["gated_events"]),
-            "confirmed_defects": 0,
+            "confirmed_defects": len(state["confirmed_defects"]),
             "wrap_events": len(state["wrap_events"]),
             "ng_windows": sum(1 for d in state["decisions"] if d.result == "NG"),
             "total_windows": len(state["decisions"]),
@@ -537,14 +600,23 @@ class InferenceEngine:
 
         def uploader():
             pool = _PinnedPool(max(self.ecfg.max_in_flight, 1) + 2)
+            prev_pool = _PinnedPool(max(self.ecfg.max_in_flight, 1) + 2)
+            prev_last: Optional[np.ndarray] = None
             with self._on_device():
                 try:
                     while (item := get(decode_q)) is not None:
                         ids, frames, n_valid = item
                         t0 = time.perf_counter()
-                        fr_dev, ready = self._upload(frames, pool)
+                        prev = None
+                        if self.cfg.inspect.quality_stats:
+                            # the previous batch's last valid frame; the first
+                            # batch diffs frame 0 against itself, as the
+                            # reference does (infer_video.py:101-104)
+                            prev = frames[:1] if prev_last is None else prev_last
+                            prev_last = frames[n_valid - 1:n_valid].copy()
+                        fr_dev, prev_dev, ready = self._upload(frames, pool, prev, prev_pool)
                         legs["upload"] += time.perf_counter() - t0
-                        put(upload_q, (ids, frames, n_valid, fr_dev, ready))
+                        put(upload_q, (ids, frames, n_valid, fr_dev, prev_dev, ready))
                 finally:
                     if not stop.is_set():
                         put(upload_q, None)
@@ -555,12 +627,14 @@ class InferenceEngine:
                                      else contextlib.nullcontext()):
                 try:
                     while (item := get(upload_q)) is not None:
-                        ids, frames, n_valid, fr_dev, ready = item
+                        ids, frames, n_valid, fr_dev, prev_dev, ready = item
                         t0 = time.perf_counter()
                         if ready is not None:
                             stream.wait_event(ready)
-                            fr_dev.record_stream(stream)
-                        out = self.step(fr_dev)
+                            for t in (fr_dev, prev_dev):
+                                if t is not None:
+                                    t.record_stream(stream)
+                        out = self.step(fr_dev, prev_dev)
                         host, done = self._download(out)
                         legs["dispatch"] += time.perf_counter() - t0
                         put(consume_q, (ids, frames, n_valid, host, done, t0))

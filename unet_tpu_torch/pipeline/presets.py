@@ -1,8 +1,7 @@
 """Named pipeline presets reproducing the reference CLI zoo (PyTorch port).
 
-A copy of unet_tpu/pipeline/presets.py. All 17 presets exist as config;
-unet_tpu_torch.pipeline.stages runs the branches `two_stage` takes and
-raises NotImplementedError, naming the ROADMAP item, for the others.
+A copy of unet_tpu/pipeline/presets.py. unet_tpu_torch.pipeline.stages
+runs all 17.
 
 Each preset is a PipelineCfg (+EngineConfig hints) carrying the exact
 constants of its reference script — the 22 infer_* scripts collapse to

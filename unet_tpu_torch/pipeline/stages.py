@@ -1,26 +1,42 @@
 """The per-batch inspection step (counterpart of
-unet_tpu/pipeline/stages.py:62-72, 78-99, 113-179, 250-310, 339-364,
-490-611, 695-697, 718-745).
+unet_tpu/pipeline/stages.py).
 
-The port runs the branches the `two_stage` and `enhanced` presets take:
-  1. uint8 BGR frames -> float32 (optional rotate / normalize)
+Every branch of the JAX package's step runs here, so every preset of
+`presets.PRESETS` does:
+  1. uint8 BGR frames -> float32 (optional rotate / normalize); with
+     `inspect.quality_stats` the quality gate's statistics of the gray
+     frames (the first frame diffs against `prev_frame_bgr`, the previous
+     batch's last frame, or against itself)
   2. optional enhancement: CLAHE on Lab L, a denoiser (non-local means, the
      bilateral filter or none), sharpen
-  3. BGR -> RGB, bilinear resize to the model size, / 255
-  4. model forward, argmax, nearest resize back to the frame, ROI limit.
-     The forward is the model's own (cuDNN convs without TF32 in fp32:
-     `forward_logits`), or, for a custom-encoder NestedUNet, the BN-folded
-     fast forward (`segment.fast_forward`) or the calibrated int8 forward
-     (`segment.int8_scales`, from `calibrate_int8`) in the model's compute
-     dtype (`segment_forward`)
-  5. the `canny_band` or `multiscale` burr stage on a static crop around the
-     ROI
-  6. class map (0 bg / 1 cable / 2 tape / 3 burr) and pixel counts
-  7. geometry (`geometry.enabled`): per-frame diameters from the largest
-     cable and tape components, labelled at model resolution where that is
-     exact, else at frame resolution; with `geometry.analyze_defects` the
-     hole, component and defect-class analysis
-Every other branch raises NotImplementedError naming its ROADMAP item.
+  3. BGR -> RGB at the model size: a bilinear stretch, a letterbox
+     (`preprocess.letterbox`) or the per-frame vertical ROI crop
+     (`preprocess.dynamic_roi`: Canny, column projection, box smoothing);
+     / 255 or ImageNet normalization
+  4. model forward (cuDNN convs without TF32 in fp32: `forward_logits`;
+     or the BN-folded fast forward or the calibrated int8 forward of a
+     custom-encoder NestedUNet, `segment_forward`); cable and tape masks by
+     `segment.threshold_mode` (argmax, per_class, relative, ultra_strict,
+     exclusive: softmax probabilities in the logits' dtype)
+  5. model-resolution component gates (`postprocess.mode` spatial or
+     refine); back to the frame (nearest resize, un-letterbox or paste into
+     the ROI span); the v3 close; the shape postprocess of `robust` (best
+     scored cable component, tape in its ring, bbox limit, cleanup); the
+     static ROI limit
+  6. the burr stage (canny_band, multiscale, laplacian, dog) on a static
+     crop around the ROI
+  7. class map (0 bg / 1 cable / 2 tape / 3 burr) and pixel counts
+  8. geometry (`geometry.enabled`): diameters from the largest cable and
+     tape components, labelled at model resolution where that is exact,
+     else at frame resolution; with `geometry.analyze_defects` the hole,
+     component and defect-class analysis over the model's defect classes
+     (argmax, or per-class probability thresholds with
+     `segment.pred_full_from_thresholds`)
+  9. `inspect.track_defects`: the top-K defect components (bbox, area,
+     class at the root pixel) for the host's defect tracker
+Connected components run on kernel B1 (`ops.cc_kernels.propagate`) on the
+card. A denoiser the JAX package does not have raises NotImplementedError
+(ROADMAP A9).
 
 Frames and masks keep the JAX package's layout, (B, H, W, 3) and (B, H, W);
 the model sees NCHW.
@@ -45,7 +61,32 @@ from unet_tpu_torch.ops import frames as _frames_ops
 from unet_tpu_torch.ops import geometry as _geo
 from unet_tpu_torch.ops import image as _image
 from unet_tpu_torch.ops import morph as _morph
-from unet_tpu_torch.pipeline.config import BurrCfg, PipelineCfg
+from unet_tpu_torch.pipeline.config import BurrCfg, PipelineCfg, PostprocessCfg
+
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+
+
+class QualityStats(NamedTuple):
+    """Per-frame statistics of the frame quality gate (reference
+    infer_video.py:73-118). The first frame of a batch diffs against the
+    previous batch's last frame where the step is given one, else against
+    itself (mad 0)."""
+    lap_var: torch.Tensor   # (B,) Laplacian variance (blur)
+    gray_std: torch.Tensor  # (B,) gray std (flat / glitch)
+    mad: torch.Tensor       # (B,) mean abs diff against the previous frame
+
+
+class DefectComponents(NamedTuple):
+    """The top-K defect components of each frame for the host's
+    DefectTracker (reference infer_video_optimized.py:66-189); (B, K)."""
+    left: torch.Tensor
+    top: torch.Tensor
+    width: torch.Tensor
+    height: torch.Tensor
+    area: torch.Tensor
+    class_id: torch.Tensor  # uint8: the class at the component's root pixel
+    valid: torch.Tensor
 
 
 class FrameOutputs(NamedTuple):
@@ -54,33 +95,20 @@ class FrameOutputs(NamedTuple):
     cable_px: torch.Tensor   # (B,) int32
     tape_px: torch.Tensor    # (B,) int32
     burr_px: torch.Tensor    # (B,) int32
-    diameters: Optional[_geo.DiameterMetrics] = None  # geometry.enabled
-    defects: Optional[_geo.DefectAnalysis] = None     # geometry.analyze_defects
+    diameters: Optional[_geo.DiameterMetrics] = None      # geometry.enabled
+    defects: Optional[_geo.DefectAnalysis] = None         # geometry.analyze_defects
+    defect_components: Optional[DefectComponents] = None  # inspect.track_defects
+    quality: Optional[QualityStats] = None                # inspect.quality_stats
 
 
 def _unsupported(cfg: PipelineCfg) -> None:
-    """Raise for the config branches later slices port."""
-    pp, seg, post = cfg.preprocess, cfg.segment, cfg.postprocess
-    todo = [
-        (pp.enhance and pp.denoise not in _DENOISERS,
-         f"preprocess.denoise {pp.denoise!r}: not a denoiser of the JAX package "
-         f"({', '.join(_DENOISERS)}); ROADMAP A9"),
-        (pp.dynamic_roi, "preprocess.dynamic_roi: ROADMAP A11"),
-        (pp.letterbox, "preprocess.letterbox: ROADMAP A11"),
-        (pp.normalization != "unit", "preprocess.normalization: ROADMAP A11"),
-        (seg.threshold_mode != "argmax",
-         f"threshold_mode {seg.threshold_mode!r}: ROADMAP A11"),
-        (post.enabled or post.close_ksize > 0, "postprocess: ROADMAP A11"),
-        (seg.pred_full_from_thresholds,
-         "segment.pred_full_from_thresholds: ROADMAP A11"),
-        (cfg.inspect.quality_stats or cfg.inspect.track_defects,
-         "inspect stats: ROADMAP A11"),
-        (cfg.burr.method not in _BURR_METHODS,
-         f"burr method {cfg.burr.method!r}: ROADMAP A11"),
-    ]
-    for bad, what in todo:
-        if bad:
-            raise NotImplementedError(f"{cfg.name}: {what}")
+    """Raise for what the JAX package does not have either: a denoiser
+    other than its own."""
+    pp = cfg.preprocess
+    if pp.enhance and pp.denoise not in _DENOISERS:
+        raise NotImplementedError(
+            f"{cfg.name}: preprocess.denoise {pp.denoise!r}: not a denoiser of the JAX "
+            f"package ({', '.join(_DENOISERS)}); ROADMAP A9")
 
 
 # ---------------------------------------------------------------------------
@@ -128,11 +156,34 @@ def preprocess_frames(frames_bgr: torch.Tensor, cfg: PipelineCfg) -> torch.Tenso
     return x
 
 
-def model_input(frames_bgr: torch.Tensor, cfg: PipelineCfg) -> torch.Tensor:
-    """BGR float frames -> RGB / 255 at model resolution, (B, h, w, 3)
-    (reference preprocess_image, infer_two_stage_burr.py:122-127)."""
+def quality_stats(gray: torch.Tensor, prev_gray: Optional[torch.Tensor] = None) -> QualityStats:
+    """The quality gate's statistics of a gray (B, H, W) batch
+    (`inspect.detectors.quality_stats`); `prev_gray` (H, W), the previous
+    batch's last gray frame, is what frame 0 diffs against."""
+    from unet_tpu_torch.inspect.detectors import quality_stats as _qs
+    return QualityStats(*_qs(gray, prev_gray))
+
+
+def model_input(frames_bgr: torch.Tensor, cfg: PipelineCfg, roi_bounds=None) -> torch.Tensor:
+    """BGR float frames -> normalized RGB at model resolution, (B, h, w, 3)
+    (reference preprocess_image, infer_two_stage_burr.py:122-127; letterbox,
+    infer_video_robust.py:40-61). `roi_bounds`: the per-frame (x0, x1) of
+    `detect_vertical_roi`, whose horizontal crop the model sees (reference
+    infer_video_roi.py:201-212). ImageNet normalization is computed as the
+    jitted JAX step computes it on the CPU: fma(x, float32(1 / 255), -mean)
+    (one rounding, here through float64) times float32(1 / std)."""
     w, h = cfg.preprocess.model_size
-    x = _image.resize_bilinear(_color.bgr2rgb(frames_bgr), (h, w))
+    rgb = _color.bgr2rgb(frames_bgr)
+    if roi_bounds is not None:
+        x = _image.crop_resize_bilinear(rgb, roi_bounds[0], roi_bounds[1], (h, w))
+    elif cfg.preprocess.letterbox:
+        x = _image.letterbox(rgb, (h, w))
+    else:
+        x = _image.resize_bilinear(rgb, (h, w))
+    if cfg.preprocess.normalization == "imagenet":
+        mean = torch.as_tensor(IMAGENET_MEAN.astype(np.float64), device=x.device)
+        inv_std = torch.as_tensor(np.float32(1.0) / IMAGENET_STD, device=x.device)
+        return (x.double() * _image.recip32(255.0) - mean).to(torch.float32) * inv_std
     return x / 255.0
 
 
@@ -179,11 +230,92 @@ def segment_forward(model: nn.Module, cfg: PipelineCfg,
     return lambda x: forward_logits(fwd, x).permute(0, 3, 1, 2)
 
 
+def _c(value: float, dtype: torch.dtype) -> float:
+    """A Python constant as JAX types it beside an array of `dtype` (a weak
+    type: rounded to that dtype)."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def softmax(logits: torch.Tensor) -> torch.Tensor:
+    """jax.nn.softmax over the class axis of (B, C, h, w) logits, in their
+    dtype, as the jitted JAX function computes it on the CPU: x - max in
+    the dtype, its exp in float32, the exps summed in float32 in class
+    order, then each exp and the sum rounded to the dtype and divided (a
+    true division)."""
+    e = torch.exp((logits - logits.amax(dim=1, keepdim=True)).to(torch.float32))
+    s = e[:, 0]
+    for c in range(1, e.shape[1]):
+        s = s + e[:, c]
+    return e.to(logits.dtype) / s.to(logits.dtype)[:, None]
+
+
 def extract_masks(logits: torch.Tensor, cfg: PipelineCfg):
-    """logits (B, C, h, w) -> (cable, tape) bool masks at model resolution;
-    argmax mode (infer_two_stage_burr.py:299-300), first index on ties."""
-    pred = torch.argmax(logits, dim=1)
-    return pred == cfg.segment.cable_cls, pred == cfg.segment.tape_cls
+    """logits (B, C, h, w) -> (cable, tape) bool masks at model resolution,
+    by `segment.threshold_mode` (unet_tpu/pipeline/stages.py:165-247):
+      argmax       argmax of the logits, first index on ties
+                   (infer_two_stage_burr.py:299-300)
+      per_class    per-class probability thresholds, tape over cable, or
+                   the mutual ratio gate `ct_ratio` (infer_video_simple.py:82-154,
+                   infer_video_v3_high_quality.py)
+      relative     thresholds relative to the background, the higher
+                   probability wins an overlap (infer_video_spatial.py:71-98)
+      ultra_strict adaptive thresholds from the frame's mean probabilities
+                   (infer_video_roi.py:60-126)
+      exclusive    thresholds with background and cable/tape margins
+                   (infer_video_robust.py:70-99)
+    Probabilities are in the logits' dtype (`softmax`); a class threshold
+    is a float32 array in the JAX package, so those comparisons are in
+    float32; every other constant is rounded to the dtype first."""
+    seg = cfg.segment
+    if seg.threshold_mode == "argmax":
+        pred = torch.argmax(logits, dim=1)
+        return pred == seg.cable_cls, pred == seg.tape_cls
+    if seg.threshold_mode not in ("per_class", "relative", "ultra_strict", "exclusive"):
+        raise ValueError(seg.threshold_mode)
+    probs = softmax(logits)
+    dt = probs.dtype
+    p_bg, p_c, p_t = probs[:, 0], probs[:, seg.cable_cls], probs[:, seg.tape_cls]
+    th = np.asarray(seg.class_thresholds, np.float32)
+    at_least = lambda p, k: p.to(torch.float32) >= float(th[k])
+
+    if seg.threshold_mode == "per_class":
+        cable, tape = at_least(p_c, seg.cable_cls), at_least(p_t, seg.tape_cls)
+        if seg.ct_ratio > 0:
+            r = _c(seg.ct_ratio, dt)
+            return cable & (p_c > p_t * r), tape & (p_t > p_c * r)
+        return cable & ~tape, tape
+
+    if seg.threshold_mode == "relative":
+        cable = p_c > p_bg * _c(seg.bg_ratio_cable, dt)
+        tape = p_t > p_bg * _c(seg.bg_ratio_tape, dt)
+        overlap = cable & tape
+        cable_wins = p_c >= p_t
+        return torch.where(overlap, cable_wins, cable), torch.where(overlap, ~cable_wins, tape)
+
+    if seg.threshold_mode == "ultra_strict":
+        n = p_c.shape[-2] * p_c.shape[-1]
+        mean = lambda p: (p.to(torch.float32).sum(dim=(-2, -1), keepdim=True)
+                          * _image.recip32(n)).to(dt)
+        mean_c, mean_t, mean_bg = mean(p_c), mean(p_t), mean(p_bg)
+        t_cable = torch.where(mean_c > _c(0.3, dt),
+                              torch.clamp(mean_c + _c(0.4, dt), max=_c(0.85, dt)), _c(0.5, dt))
+        t_tape = torch.where(mean_t > _c(0.15, dt),
+                             torch.clamp(mean_t + _c(0.5, dt), max=_c(0.85, dt)), _c(0.55, dt))
+        bg_margin = torch.clamp(1.0 - mean_bg, min=_c(0.2, dt))
+        winner = torch.argmax(probs, dim=1)
+        two = _c(2.0, dt)
+        cable = ((winner == seg.cable_cls) & (p_c >= t_cable) & (p_c > p_bg * two)
+                 & (p_c >= p_bg + bg_margin))
+        tape = ((winner == seg.tape_cls) & (p_t >= t_tape) & (p_t > p_bg * two)
+                & (p_t >= p_bg + bg_margin))
+        return cable, tape
+
+    bg_m, ct_m = _c(seg.bg_margin, dt), _c(seg.ct_margin, dt)
+    c_ok = at_least(p_c, seg.cable_cls) & (p_c > p_bg + bg_m)
+    t_ok = at_least(p_t, seg.tape_cls) & (p_t > p_bg + bg_m)
+    cable = c_ok & (p_c > p_t + ct_m)
+    tape = t_ok & (p_t >= p_c - ct_m)
+    return cable, tape & ~cable
 
 
 def roi_limit(mask: torch.Tensor, roi, frame_hw) -> torch.Tensor:
@@ -242,8 +374,25 @@ def burr_multiscale(gray: torch.Tensor, cable: torch.Tensor, b: BurrCfg,
         min_w=b.min_w, min_h=b.min_h, strict_min_wh=b.strict_min_wh)
 
 
+def burr_laplacian(gray: torch.Tensor, cable: torch.Tensor, b: BurrCfg) -> torch.Tensor:
+    """Laplacian band threshold (reference src/refactor/burr_detector.py:11-66):
+    band_px is the reference's band_out, the SE a (2 * band_out + 1) ellipse."""
+    band = _morph.outer_band(cable, _morph.ellipse_kernel(2 * b.band_px + 1))
+    lap_u8 = _edges.uint8_wrap(torch.abs(_edges.laplacian(gray)))
+    return _cc.filter_components_by_geometry((lap_u8 > b.laplacian_thresh) & band,
+                                             b.min_area, b.max_area)
+
+
+def burr_dog(gray: torch.Tensor, cable: torch.Tensor, b: BurrCfg) -> torch.Tensor:
+    """Difference-of-Gaussians alternative (reference
+    src/refactor/burr_detector.py:69-118)."""
+    band = _morph.outer_band(cable, _morph.ellipse_kernel(2 * b.band_px + 1))
+    return _cc.filter_components_by_geometry((_edges.dog(gray) > b.laplacian_thresh) & band,
+                                             b.min_area, b.max_area)
+
+
 _BURR_METHODS = {"canny_band": burr_canny_band, "multiscale": burr_multiscale,
-                 "none": None}
+                 "laplacian": burr_laplacian, "dog": burr_dog, "none": None}
 _DENOISERS = ("nlm", "fastNlMeans", "bilateral", "none")
 
 
@@ -283,26 +432,184 @@ def _burr_on_roi_crop(gray: torch.Tensor, cable: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# component postprocess: at model resolution (spatial, roi_first), and the
+# shape postprocess of robust at frame resolution
+# ---------------------------------------------------------------------------
+
+def spatial_strip_filter(mask: torch.Tensor, w_bounds, p: PostprocessCfg) -> torch.Tensor:
+    """Vertical-strip component gates at model resolution: components with
+    area > spatial_min_area, width within `w_bounds` and height >= H *
+    spatial_min_height_ratio (reference spatial_filter,
+    infer_video_spatial.py:24-53)."""
+    H = mask.shape[-2]
+    labels = _cc.connected_components(mask)
+    st = _cc.component_stats(labels, p.max_components)
+    keep = ((st.area > p.spatial_min_area) & (st.width >= w_bounds[0])
+            & (st.width <= w_bounds[1])
+            & (st.height.to(torch.float32) >= float(np.float32(H * p.spatial_min_height_ratio))))
+    return _cc.keep_mask(labels, st, keep)
+
+
+def refine_mask_by_geometry(mask: torch.Tensor, p: PostprocessCfg) -> torch.Tensor:
+    """Aspect and position gates at model resolution (reference
+    refine_mask_by_geometry, infer_video_roi.py:128-167): drop area <
+    refine_min_area, wide squat components (h / w < refine_aspect while w >
+    refine_wide_w), and components whose centroid lies within
+    refine_edge_frac of the left or right edge unless area >=
+    refine_edge_area. The centroid is `component_stats`' exactly rounded
+    one (ROADMAP C: the JAX package sums it in float32)."""
+    W = mask.shape[-1]
+    labels = _cc.connected_components(mask)
+    st = _cc.component_stats(labels, p.max_components)
+    aspect = st.height.to(torch.float32) / torch.clamp(st.width.to(torch.float32), min=1.0)
+    keep = (st.area >= p.refine_min_area) & ~((aspect < p.refine_aspect)
+                                              & (st.width > p.refine_wide_w))
+    near_edge = ((st.cx < float(np.float32(W * p.refine_edge_frac)))
+                 | (st.cx > float(np.float32(W * (1.0 - p.refine_edge_frac)))))
+    keep = keep & ~(near_edge & (st.area < p.refine_edge_area))
+    return _cc.keep_mask(labels, st, keep)
+
+
+def defect_map_from_thresholds(logits: torch.Tensor, cable: torch.Tensor, tape: torch.Tensor,
+                               cfg: PipelineCfg, frame_hw) -> torch.Tensor:
+    """Frame-resolution class map whose defect classes come from
+    per-channel probability thresholds and per-mask open/close, not the
+    argmax, later channels over earlier ones over tape over cable
+    (reference infer_video_v3_high_quality.py predict()). Channel k is
+    class `class_remap[k]`."""
+    seg = cfg.segment
+    probs = softmax(logits)
+    remap = seg.class_remap or tuple(range(seg.num_classes))
+    out = torch.where(tape, 2, torch.where(cable, 1, 0)).to(torch.uint8)
+    thr = _c(seg.defect_threshold, probs.dtype)
+    for k in range(3, seg.num_classes):
+        m = probs[:, k].to(torch.float32) >= thr
+        if seg.defect_open_ksize:
+            m = _morph.open_(m, _morph.ellipse_kernel(seg.defect_open_ksize))
+        if seg.defect_close_ksize:
+            m = _morph.close_(m, _morph.ellipse_kernel(seg.defect_close_ksize))
+        m = _image.resize_nearest(m, frame_hw, channel_dim=False)
+        out = torch.where(m, remap[k], out).to(torch.uint8)
+    return out
+
+
+def filter_cable_by_shape(cable: torch.Tensor, p: PostprocessCfg, roi_width: int) -> torch.Tensor:
+    """The best-scored cable component, score = area * aspect * (1 -
+    offset) under area, aspect and centre gates (reference
+    src/refactor/postprocess.py:12-76). The offset's `/ roi_width` is the
+    jitted product with float32(1 / roi_width); ties of the score go to
+    the first of the top-16 components."""
+    labels = _cc.connected_components(cable)
+    st = _cc.component_stats(labels, 16)
+    aspect = (torch.maximum(st.width, st.height)
+              / (torch.minimum(st.width, st.height) + 1e-6))
+    offset = torch.abs(st.cx - roi_width / 2.0) * _image.recip32(roi_width)
+    ok = (st.valid & (st.area >= p.cable_min_area) & (aspect >= p.cable_min_aspect)
+          & (offset <= p.cable_max_center_offset))
+    score = torch.where(ok, st.area * aspect * (1.0 - offset), -1.0)
+    best = torch.argmax(score, dim=-1, keepdim=True)
+    keep = torch.zeros_like(ok).scatter_(-1, best, True) & (score.gather(-1, best) > 0)
+    return _cc.keep_mask(labels, st, keep)
+
+
+def cable_bbox_limit(mask: torch.Tensor, cable: torch.Tensor, pad: int) -> torch.Tensor:
+    """`mask` outside the cable's bounding box + `pad` zeroed; all zero
+    without cable (reference apply_roi_limit, infer_video_robust.py:201-216)."""
+    H, W = mask.shape[-2:]
+    rows_any, cols_any = cable.any(dim=-1), cable.any(dim=-2)
+    first = lambda v: torch.argmax(v.to(torch.uint8), dim=-1)
+    r0, r1 = first(rows_any) - pad, H - 1 - first(rows_any.flip(-1)) + pad
+    c0, c1 = first(cols_any) - pad, W - 1 - first(cols_any.flip(-1)) + pad
+    ri = torch.arange(H, device=mask.device)
+    ci = torch.arange(W, device=mask.device)
+    row_ok = (ri >= r0[..., None]) & (ri <= r1[..., None])
+    col_ok = (ci >= c0[..., None]) & (ci <= c1[..., None])
+    box = row_ok[..., :, None] & col_ok[..., None, :]
+    return mask & box & rows_any.any(dim=-1)[..., None, None]
+
+
+def constrain_tape_to_ring(tape: torch.Tensor, cable: torch.Tensor,
+                           p: PostprocessCfg) -> torch.Tensor:
+    """Tape in the dilate-erode ring around the cable, its largest
+    component kept (reference src/refactor/postprocess.py:79-118)."""
+    ring = (_morph.dilate(cable, _morph.ellipse_kernel(p.tape_ring_dilate))
+            & ~_morph.erode(cable, _morph.ellipse_kernel(p.tape_ring_erode)))
+    return _cc.largest_component(tape & ring)
+
+
+# ---------------------------------------------------------------------------
 # the step
 # ---------------------------------------------------------------------------
 
 @torch.inference_mode()
 def run_pipeline(forward: Callable[[torch.Tensor], torch.Tensor], frames_bgr: torch.Tensor,
-                 cfg: PipelineCfg) -> FrameOutputs:
+                 cfg: PipelineCfg, prev_frame_bgr: Optional[torch.Tensor] = None) -> FrameOutputs:
     """The full step over one (B, H, W, 3) uint8 BGR batch, on the device of
     `frames_bgr`. `forward` is the stage-1 forward on that device,
-    `segment_forward(model, cfg, device)`."""
+    `segment_forward(model, cfg, device)`. `prev_frame_bgr` (1, H, W, 3):
+    the previous batch's last frame, read only by the quality statistics'
+    motion diff."""
     _unsupported(cfg)
-    frames = preprocess_frames(frames_bgr, cfg)
+    pp, post = cfg.preprocess, cfg.postprocess
+    frames = geometric_preprocess(frames_bgr, cfg)
     B, H, W = frames.shape[:3]
 
-    logits = forward(model_input(frames, cfg))
+    quality = None
+    if cfg.inspect.quality_stats:
+        # on the frames before enhancement, as the reference's gate
+        # (infer_video.py:84)
+        prev_gray = None
+        if prev_frame_bgr is not None:
+            prev_gray = _color.bgr2gray(geometric_preprocess(prev_frame_bgr, cfg))[0]
+        quality = quality_stats(_color.bgr2gray(frames), prev_gray)
+
+    if pp.enhance:
+        frames = enhance_frames(frames, cfg)
+
+    roi_bounds = None
+    if pp.dynamic_roi:
+        roi_bounds = _image.detect_vertical_roi(
+            _color.bgr2gray(frames), smooth=pp.dynamic_roi_smooth,
+            rel_thresh=pp.dynamic_roi_thresh, margin_frac=pp.dynamic_roi_margin)
+
+    logits = forward(model_input(frames, cfg, roi_bounds))
     cable_m, tape_m = extract_masks(logits, cfg)
 
-    cable = roi_limit(_image.resize_nearest(cable_m, (H, W), channel_dim=False),
-                      cfg.roi, (H, W))
-    tape = roi_limit(_image.resize_nearest(tape_m, (H, W), channel_dim=False),
-                     cfg.roi, (H, W))
+    if post.enabled and post.mode == "spatial":
+        cable_m = spatial_strip_filter(cable_m, post.spatial_cable_w, post)
+        tape_m = spatial_strip_filter(tape_m, post.spatial_tape_w, post)
+    elif post.enabled and post.mode == "refine":
+        cable_m = refine_mask_by_geometry(cable_m, post)
+        tape_m = refine_mask_by_geometry(tape_m, post)
+
+    # back to the frame: the ROI crop's span, the letterbox's content, or a
+    # nearest resize (infer_video_roi.py:238-247, robust.py:52-61,
+    # infer_two_stage_burr.py:307-308)
+    if roi_bounds is not None:
+        to_frame = lambda m: _image.uncrop_resize_nearest(m, roi_bounds[0], roi_bounds[1], (H, W))
+    elif pp.letterbox:
+        to_frame = lambda m: _image.unletterbox_mask(m, (H, W), m.shape[-2:])
+    else:
+        to_frame = lambda m: _image.resize_nearest(m, (H, W), channel_dim=False)
+    cable, tape = to_frame(cable_m), to_frame(tape_m)
+
+    if post.close_ksize:
+        se = _morph.ellipse_kernel(post.close_ksize)
+        cable, tape = _morph.close_(cable, se), _morph.close_(tape, se)
+
+    if post.enabled and post.mode == "shape":
+        roi_w = W if cfg.roi is None else (cfg.roi.scaled((W, H)).x2 - cfg.roi.scaled((W, H)).x1)
+        cable = filter_cable_by_shape(cable, post, roi_w)
+        tape = constrain_tape_to_ring(tape, cable, post)
+        if post.cable_bbox_pad > 0:
+            tape = cable_bbox_limit(tape, cable, post.cable_bbox_pad)
+        if post.morph_cleanup_ksize:
+            se = _morph.ellipse_kernel(post.morph_cleanup_ksize)
+            cable = _morph.close_(_morph.open_(cable, se), se)
+            tape = _morph.close_(_morph.open_(tape, se), se)
+
+    cable = roi_limit(cable, cfg.roi, (H, W))
+    tape = roi_limit(tape, cfg.roi, (H, W))
 
     # the reference skips the burr stage when no frame holds cable
     # (infer_two_stage_burr.py:69-70), the JAX step by lax.cond on the
@@ -324,24 +631,49 @@ def run_pipeline(forward: Callable[[torch.Tensor], torch.Tensor], frames_bgr: to
     class_map = torch.where(cable, 1, class_map).to(torch.uint8)
     class_map = torch.where(tape, 2, class_map).to(torch.uint8)
     class_map = torch.where(burr, 3, class_map).to(torch.uint8)
+
+    pred_full = _pred_full(logits, cable, tape, cfg)
     return FrameOutputs(
         class_map=class_map,
         cable_px=cable.sum(dim=(-2, -1), dtype=torch.int32),
         tape_px=tape.sum(dim=(-2, -1), dtype=torch.int32),
         burr_px=burr.sum(dim=(-2, -1), dtype=torch.int32),
         diameters=_diameters(cable_m, tape_m, cable, tape, cfg),
-        defects=_defects(logits, cable, tape, cfg),
+        defects=_defects(pred_full, cable, tape, cfg),
+        defect_components=defect_components(pred_full, burr, cfg),
+        quality=quality,
     )
+
+
+def _pred_full(logits: torch.Tensor, cable: torch.Tensor, tape: torch.Tensor,
+               cfg: PipelineCfg) -> Optional[torch.Tensor]:
+    """The frame-resolution class map with the model's defect classes
+    (>= 3), for defect analysis and tracking on a model of more than 3
+    classes (unet_tpu/pipeline/stages.py:613-627): per-class thresholds
+    (`segment.pred_full_from_thresholds`) or the argmax through
+    `segment.class_remap`. None otherwise."""
+    seg = cfg.segment
+    if seg.num_classes <= 3 or not (cfg.geometry.analyze_defects or cfg.inspect.track_defects):
+        return None
+    H, W = cable.shape[-2:]
+    if seg.pred_full_from_thresholds:
+        return defect_map_from_thresholds(logits, cable, tape, cfg, (H, W))
+    pred = torch.argmax(logits, dim=1).to(torch.uint8)
+    if seg.class_remap:
+        pred = torch.as_tensor(np.asarray(seg.class_remap, np.uint8),
+                               device=pred.device)[pred.long()]
+    return _image.resize_nearest(pred, (H, W), channel_dim=False)
 
 
 def _diameters(cable_m: torch.Tensor, tape_m: torch.Tensor, cable: torch.Tensor,
                tape: torch.Tensor, cfg: PipelineCfg) -> Optional[_geo.DiameterMetrics]:
-    """The geometry stage (unet_tpu/pipeline/stages.py:629-645): diameters
+    """The geometry stage (unet_tpu/pipeline/stages.py:629-648): diameters
     from the largest cable and tape components of each frame, or None
     without `geometry.enabled`. Where the model's masks reach the frame by a
-    nearest upscale alone (no ROI and H, W at least the model's h, w), the
-    components are labelled at model resolution, which is exact and
-    cheaper; otherwise at frame resolution, with a 50-pixel floor."""
+    nearest upscale alone (no ROI, no postprocess, no letterbox or dynamic
+    ROI, and H, W at least the model's h, w), the components are labelled at
+    model resolution, which is exact and cheaper; otherwise at frame
+    resolution, with a 50-pixel floor."""
     g = cfg.geometry
     if not g.enabled:
         return None
@@ -360,34 +692,51 @@ def _diameters(cable_m: torch.Tensor, tape_m: torch.Tensor, cable: torch.Tensor,
                                             smooth_ksize=g.smooth_ksize)
 
 
-def _defects(logits: torch.Tensor, cable: torch.Tensor, tape: torch.Tensor,
+def _defects(pred_full: Optional[torch.Tensor], cable: torch.Tensor, tape: torch.Tensor,
              cfg: PipelineCfg) -> Optional[_geo.DefectAnalysis]:
-    """`geometry.analyze_defects` (unet_tpu/pipeline/stages.py:612-627,
-    647-660): the analysis of a frame-resolution map of cable (1) and tape
-    (2) from the final masks, over which a model of more than 3 classes
-    lays its defect classes (>= 3, argmax, through `segment.class_remap`)."""
-    g, seg = cfg.geometry, cfg.segment
+    """`geometry.analyze_defects` (unet_tpu/pipeline/stages.py:650-663): the
+    analysis of a frame-resolution map of cable (1) and tape (2) from the
+    final masks, over which `pred_full` lays its defect classes (>= 3)."""
+    g = cfg.geometry
     if not g.analyze_defects:
         return None
-    H, W = cable.shape[-2:]
     amap = torch.where(tape, 2, torch.where(cable, 1, 0)).to(torch.uint8)
-    if seg.num_classes > 3:
-        pred = torch.argmax(logits, dim=1)
-        if seg.class_remap:
-            pred = torch.as_tensor(np.asarray(seg.class_remap, np.uint8), device=pred.device)[pred]
-        pred = _image.resize_nearest(pred.to(torch.uint8), (H, W), channel_dim=False)
-        amap = torch.where(pred >= 3, pred, amap)
+    if pred_full is not None:
+        amap = torch.where(pred_full >= 3, pred_full, amap)
     return _geo.analyze_defects(amap, defect_classes=g.defect_classes,
                                 hole_min_size=g.hole_min_size,
                                 max_components=g.max_components)
 
 
+def defect_components(pred_full: Optional[torch.Tensor], burr: torch.Tensor,
+                      cfg: PipelineCfg) -> Optional[DefectComponents]:
+    """`inspect.track_defects` (unet_tpu/pipeline/stages.py:665-681): the
+    top-`track_max_components` components of the defect classes of
+    `pred_full` (or of the burr mask, class 3, where there is none),
+    labelled at frame resolution, each with the class at its root pixel,
+    which lies inside the component by construction."""
+    if not cfg.inspect.track_defects:
+        return None
+    if pred_full is not None:
+        mask, class_src = pred_full >= 3, pred_full
+    else:
+        mask, class_src = burr, torch.where(burr, 3, 0).to(torch.uint8)
+    B, H, W = mask.shape
+    st = _cc.component_stats(_cc.connected_components(mask), cfg.inspect.track_max_components)
+    cls = class_src.reshape(B, H * W).gather(1, st.label.clamp(min=0).to(torch.int64))
+    return DefectComponents(left=st.left, top=st.top, width=st.width, height=st.height,
+                            area=st.area, class_id=torch.where(st.valid, cls, 0).to(torch.uint8),
+                            valid=st.valid)
+
+
 def build_step(model: nn.Module, cfg: PipelineCfg, device: Union[str, torch.device] = "cuda"
                ) -> Callable[[Union[np.ndarray, torch.Tensor]], FrameOutputs]:
-    """Returns step(frames_u8_bgr) -> FrameOutputs on `device`. The model is
-    moved to `device` and put in eval mode, and the weights of the fast or
-    int8 forward are prepared once (`segment_forward`); frames may be a
-    numpy array or a tensor and are moved to `device`. There is no
+    """Returns step(frames_u8_bgr, prev_frame_bgr=None) -> FrameOutputs on
+    `device`. The model is moved to `device` and put in eval mode, and the
+    weights of the fast or int8 forward are prepared once
+    (`segment_forward`); frames (and the previous batch's last frame, (1, H,
+    W, 3), for the quality statistics) may be numpy arrays or tensors and
+    are moved to `device`. There is no
     fallback: a `cuda` step without a card raises. A float32 forward runs
     with full-fp32 convs whatever the process-wide TF32 flags say, and
     leaves them as it found them (`forward_logits`)."""
@@ -397,9 +746,10 @@ def build_step(model: nn.Module, cfg: PipelineCfg, device: Union[str, torch.devi
         raise RuntimeError("build_step(device='cuda') needs a CUDA device")
     forward = segment_forward(model, cfg, device)
 
-    def step(frames_bgr) -> FrameOutputs:
+    def step(frames_bgr, prev_frame_bgr=None) -> FrameOutputs:
         frames = torch.as_tensor(frames_bgr).to(device)
-        return run_pipeline(forward, frames, cfg)
+        prev = None if prev_frame_bgr is None else torch.as_tensor(prev_frame_bgr).to(device)
+        return run_pipeline(forward, frames, cfg, prev)
 
     return step
 
