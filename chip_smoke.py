@@ -107,7 +107,22 @@ Phases; any failure exits non-zero and prints no result line:
      `video_full` through `InferenceEngine` with the 7-class colour model
      over `gate_scenes` (`phase_inspect_engine`): every skipped.csv,
      events.csv and confirmed_defects.csv row against the step through the
-     host's gate and tracker
+     host's gate and tracker; then `cli infer --config` (`phase_config_runs`)
+     with production's YAML (a seeded NestedUNet .pth), a legacy AppCfg
+     layout (`--arch lightweight:mobilenet_v3_small`) and a legacy
+     RefactorConfig layout with its event section (a seeded 7-class
+     SimpleUNet .pth), each held as the engine runs above are
+  8. the model zoo (`phase_models`, run after phase 3, before the kernels'
+     comparisons): the ResNet50 NestedUNet, SimpleUNet and the lightweight
+     UNet++ with each of its six encoders, built by the CLI's
+     `_build_model` with seeded weights, through `two_stage` at 512^2 on
+     b=8 800x448 frames in fp32 and bf16: B1's launches (2 a batch, cluster
+     route) and inputs (into phase 4's comparisons), fp32 logits against
+     the CPU's on 2 frames (atol/rtol 1e-3, 2e-3 for the resnet50 encoder),
+     class maps and px counts against the CPU's but on tie pixels
+     (`compare_with_ties`), bf16 class maps against fp32 at >= 0.995, ms per
+     batch and the forward's ms and TFLOP/s; then one two_stage step inside
+     `core.profiling.device_trace`, whose trace must name B1's kernel
 Then, on the last two lines, the kernels' JSON record and
 {"ok": true, "device": {...}}.
 
@@ -326,7 +341,25 @@ def seeded_nested_unet(num_classes: int = 3, seed: int = 0,
     type `dtype`."""
     from unet_tpu_torch.models import NestedUNet
 
-    model = NestedUNet(num_classes=num_classes, deep_supervision=False, dtype=dtype)
+    return _seed_state(NestedUNet(num_classes=num_classes, deep_supervision=False, dtype=dtype),
+                       seed)
+
+
+def seeded_model(arch: str, num_classes: int = 3, seed: int = 0,
+                 dtype: str = "float32") -> nn.Module:
+    """The model of `arch` (`cli --arch`) built by the CLI's `_build_model`
+    without deep-supervision heads, its weights drawn as seeded_nested_unet
+    draws them; float32 parameters, compute type `dtype`; eval mode."""
+    from unet_tpu_torch.cli.main import _build_model
+
+    return _seed_state(_build_model(num_classes, arch, dtype, deep_supervision=False), seed)
+
+
+def _seed_state(model: nn.Module, seed: int) -> nn.Module:
+    """Every floating tensor of `model`'s state drawn from numpy's generator
+    with `seed`, in state-dict order: conv weights He-normal (fan-in from
+    dims 1-3), BN running variances in [0.5, 1.5], running means and biases
+    normal (0.1), BN weights in [0.8, 1.2]. Returns the model in eval mode."""
     r = np.random.default_rng(seed)
     sd = {}
     for k, v in model.state_dict().items():
@@ -1290,7 +1323,15 @@ ENGINE_PER_BATCH = {"two_stage_bf16": dict(cc_propagate=2, qconv=0),
                     # ROADMAP A8: the burr crop of the turned frames; debug has no B1 site
                     "high_res_roi": dict(cc_propagate=2, qconv=0),
                     "debug": dict(cc_propagate=0, qconv=0),
-                    "optimized": dict(cc_propagate=sum(PRESET_B1["optimized"]), qconv=0)}
+                    "optimized": dict(cc_propagate=sum(PRESET_B1["optimized"]), qconv=0),
+                    # `cli infer --config`: production's YAML as the preset; the
+                    # AppCfg layout (ROI; burr on its crop, cable and tape labels
+                    # at the frame); the RefactorConfig layout (laplacian burr:
+                    # its CC filter; the shape postprocess' cable and tape
+                    # labels; the diameters' two)
+                    "config_production": dict(cc_propagate=7, qconv=0),
+                    "config_app_cfg": dict(cc_propagate=4, qconv=0),
+                    "config_refactor_cfg": dict(cc_propagate=5, qconv=0)}
 
 
 def _events_rows(out, ids, n_valid, cfg):
@@ -1321,7 +1362,8 @@ def _per_batch(got: dict, nb: int, what: str) -> dict:
 
 def engine_run(path: str, src: str, pth: str, flags, out, device="cuda", batch: int = 8):
     """`cli infer` (`cli.main.main`) over the image directory `src` with the
-    model `pth` and `flags`, counted alone: every launch count set to 0 as
+    model `pth` (None: the CLI's seeded weights of `--arch` in `flags`) and
+    `flags`, counted alone: every launch count set to 0 as
     `process_video` starts and read as it ends, B1 and qconv launched as
     ENGINE_PER_BATCH[path] says for each batch (none on the CPU); every
     events.csv row equal to the same frames through `stages.build_step` with
@@ -1344,7 +1386,8 @@ def engine_run(path: str, src: str, pth: str, flags, out, device="cuda", batch: 
     engine_mod.InferenceEngine.process_video = counted
     try:
         t = time.time()
-        rc = cli.main(["infer", "--video", src, "--output", str(out), "--model", pth,
+        model = ["--model", pth] if pth else []
+        rc = cli.main(["infer", "--video", src, "--output", str(out), *model,
                        "--no-video", "--batch", str(batch), "--device", device] + list(flags))
         seconds = time.time() - t
     finally:
@@ -1606,17 +1649,21 @@ def _decode_ms(files) -> dict:
 
 
 def _conv_gflop(model: nn.Module, hw) -> float:
-    """GFLOP (2 x multiply-adds) of every convolution in one frame's forward
-    at `hw`, counted from the layers' output shapes."""
+    """GFLOP (2 x multiply-adds) of every convolution, transposed ones
+    included, in one frame's forward at `hw`, counted from the layers'
+    shapes."""
     total = 0
 
     def hook(m, inp, out):
         nonlocal total
-        total += (2 * out.numel() * (m.in_channels // m.groups)
-                  * m.kernel_size[0] * m.kernel_size[1])
+        k = m.kernel_size[0] * m.kernel_size[1]
+        if isinstance(m, nn.ConvTranspose2d):   # each input pixel meets Cout x k taps
+            total += 2 * inp[0].numel() * (m.out_channels // m.groups) * k
+        else:
+            total += 2 * out.numel() * (m.in_channels // m.groups) * k
 
     hooks = [m.register_forward_hook(hook) for m in model.modules()
-             if isinstance(m, nn.Conv2d)]
+             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d))]
     with torch.inference_mode():
         model(torch.zeros(1, 3, *hw, device=next(model.parameters()).device))
     for h in hooks:
@@ -1962,6 +2009,262 @@ def phase_low_precision(cfg, expect, counts, gflop, card, H, W, device="cuda"):
     return timings, q_rec, checks, ups
 
 
+# ---------------------------------------------------------------------------
+# the model zoo: the ResNet50 NestedUNet, SimpleUNet and the lightweight UNet++
+# with its six encoders; `cli infer --config`; the device trace
+# ---------------------------------------------------------------------------
+
+MODEL_ARCHS = ("nested_unet_resnet50", "simple_unet") + tuple(
+    f"lightweight:{e}" for e in ("custom", "resnet18", "resnet34", "mobilenet_v3_small",
+                                 "mobilenet_v3_large", "shufflenet_v2_x1_0"))
+# fp32 logits, card against the CPU: the gates of tests/test_models_parity.py
+# (:42, and :125 for the resnet50 encoder's deeper stack), stated there for
+# logits of order 1. The seeded residual encoders' logits reach 1e3 (no
+# trained BN statistics hold their sums down), so the absolute part of the
+# gate, and the tie gap, scale with the largest logit where it passes 1
+MODEL_ATOL = {"nested_unet_resnet50": 2e-3}
+TIE_GAP = 1e-3          # pixels whose two largest reference logits lie closer are ties
+BF16_AGREE = 0.995      # bf16 class maps against the fp32 step's (PERF.md §2)
+
+
+class LogitsTap(nn.Module):
+    """`model`, keeping the logits (the first head) of its last forward."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+        self.logits = None
+
+    def forward(self, x):
+        y = self.model(x)
+        self.logits = (y[0] if isinstance(y, (list, tuple)) else y).detach()
+        return y
+
+
+def tie_pixels(logits: torch.Tensor, gap: float = TIE_GAP) -> torch.Tensor:
+    """(B, h, w) bool: the pixels of (B, C, h, w) logits whose two largest
+    values lie within `gap` of each other."""
+    top2 = logits.float().topk(2, dim=1).values
+    return (top2[:, 0] - top2[:, 1]) < gap
+
+
+def compare_with_ties(got, want, got_logits, want_logits, what: str,
+                      gap: float = TIE_GAP) -> dict:
+    """A step's outputs `got` against the reference's `want` on the same
+    frames (class_map, cable_px, tape_px, burr_px: tensors or arrays), given
+    both steps' logits (B, C, h, w) and a step whose masks reach the frame
+    by a nearest resize; the first B frames of each are compared, B being
+    the reference logits'. The argmax may differ only on tie pixels of the
+    reference logits (`tie_pixels` with `gap`); a frame with no argmax flip
+    must give equal class maps and px counts; in a frame with a flip the
+    class maps may differ only in the frame footprint of the tie pixels and
+    where either side has burr (the burr stage reads the cable mask).
+    Returns the counts of tie pixels, flips and differing class-map
+    pixels."""
+    from unet_tpu_torch.ops.image import resize_nearest
+
+    n = want_logits.shape[0]
+    def field(out, f):
+        v = getattr(out, f)[:n]
+        return v.cpu() if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
+
+    got_logits, want_logits = got_logits[:n].float().cpu(), want_logits.float().cpu()
+    ties = tie_pixels(want_logits, gap)
+    flips = got_logits.argmax(1) != want_logits.argmax(1)
+    if bool((flips & ~ties).any()):
+        raise AssertionError(f"{what}: the argmax differs off the tie pixels")
+    gm, wm = field(got, "class_map"), field(want, "class_map")
+    foot = resize_nearest(ties, gm.shape[-2:], channel_dim=False)
+    diff = gm != wm
+    px = {f: (field(got, f), field(want, f)) for f in ("cable_px", "tape_px", "burr_px")}
+    for i in range(n):
+        if not bool(flips[i].any()):
+            if bool(diff[i].any()) or any(int(a[i]) != int(b[i]) for a, b in px.values()):
+                raise AssertionError(f"{what}: frame {i} differs with no argmax flip")
+        elif bool((diff[i] & ~(foot[i] | (gm[i] == 3) | (wm[i] == 3))).any()):
+            raise AssertionError(f"{what}: frame {i} differs off its tie pixels and burr")
+    return dict(tie_pixels=int(ties.sum()), flips=int(flips.sum()),
+                class_map_diff=int(diff.sum()))
+
+
+def phase_models(expect, H, W, archs=MODEL_ARCHS, device="cuda", b=8, b_cpu=2, reps=5,
+                 model_size=None, card=""):
+    """Every model of the zoo (`archs`, built by the CLI's `_build_model`
+    with `seeded_model`'s weights) through the `two_stage` step on b HxW
+    `synthetic_frames`, in fp32 and bf16, at the preset's model size (or
+    `model_size`): B1's inputs of the fp32 step recorded, each step driven
+    once with its launches held to `expect` (`_drive`); the fp32 logits of
+    the first b_cpu frames against the same step on the CPU (plain
+    versions) within MODEL_ATOL (rtol 1e-3; both scaled by the largest
+    logit where it passes 1), its class maps and px counts with
+    `compare_with_ties`; the bf16 class maps against the fp32 step's
+    on all b frames at >= BF16_AGREE; ms per batch of each step and of its
+    forward alone (CUDA events, fp32 and bf16 in turns), and the forward's
+    GFLOP a frame. The small models' times are paced by the host's launches
+    (the spin before `_time_ms` hides only 25 ms of them). Returns
+    (B1 inputs by site, {path: launch counts}, checks, timings)."""
+    from unet_tpu_torch.pipeline import presets, stages
+
+    cfg = presets.two_stage()
+    if model_size:
+        cfg = cfg.replace_in("preprocess", model_size=(model_size, model_size))
+    mw, mh = cfg.preprocess.model_size
+    frames = torch.from_numpy(synthetic_frames(b, H, W, seed=20)).to(device)
+    x = stages.model_input(stages.preprocess_frames(frames, cfg), cfg).permute(0, 3, 1, 2)
+    x = x.contiguous()
+    cc_rec, counts, checks, timings = {}, {}, {}, {}
+    for arch in archs:
+        t0 = time.time()
+        tap = LogitsTap(seeded_model(arch))
+        step = stages.build_step(tap, cfg, device=device)
+        cc_rec.update(_record_main_path_inputs(step, frames, arch)[0])
+        out, counts[arch] = _drive(step, frames, expect, f"two_stage {arch} fp32, b={b}, "
+                                                         f"{W}x{H}, model {mw}x{mh}")
+        _check_outputs(out, b, H, W, f"{arch} fp32")
+        card_logits = tap.logits
+        tap_cpu = LogitsTap(seeded_model(arch))
+        t = time.time()
+        ref = stages.build_step(tap_cpu, cfg, device="cpu")(frames[:b_cpu].cpu())
+        cpu_s = time.time() - t
+        got_l, want_l = card_logits[:b_cpu].float().cpu(), tap_cpu.logits.float()
+        err = float((got_l - want_l).abs().max())
+        scale = max(1.0, float(want_l.abs().max()))
+        atol = MODEL_ATOL.get(arch, 1e-3)
+        if not torch.allclose(got_l / scale, want_l / scale, atol=atol, rtol=1e-3):
+            raise AssertionError(f"{arch}: fp32 logits differ from the CPU's by {err} "
+                                 f"(atol {atol} x {scale:.1f}, rtol 1e-3)")
+        ties = compare_with_ties(out, ref, got_l, want_l, f"{arch} fp32", gap=TIE_GAP * scale)
+        model16 = seeded_model(arch, dtype="bfloat16")
+        step16 = stages.build_step(model16, cfg, device=device)
+        out16, counts[f"{arch}_bf16"] = _drive(step16, frames, expect, f"two_stage {arch} bf16, "
+                                                                       f"b={b}")
+        _check_outputs(out16, b, H, W, f"{arch} bf16")
+        agree = float((out16.class_map == out.class_map).float().mean())
+        if agree < BF16_AGREE:
+            raise AssertionError(f"{arch}: bf16 class maps agree with fp32 on {agree} < "
+                                 f"{BF16_AGREE}")
+        # in turns, fp32 bf16 bf16 fp32, each the mean of its two runs
+        fns = {"fp32": (tap.model, step), "bf16": (model16, step16)}
+        runs = {dt: {"forward_ms": [], "ms": []} for dt in fns}
+        with torch.inference_mode():
+            for dt in ("fp32", "bf16", "bf16", "fp32"):
+                m, st = fns[dt]
+                runs[dt]["forward_ms"].append(_time_ms(lambda: stages.forward_logits(m, x), reps))
+            gflop = _conv_gflop(tap.model, (mh, mw))
+        for dt in ("fp32", "bf16", "bf16", "fp32"):
+            runs[dt]["ms"].append(_time_ms(lambda: fns[dt][1](frames), reps))
+        fwd = {dt: float(np.mean(r["forward_ms"])) for dt, r in runs.items()}
+        ms = {dt: float(np.mean(r["ms"])) for dt, r in runs.items()}
+        checks[arch] = dict(logits_max_abs_err=err, logits_scale=scale, atol=atol,
+                            cpu_frames=b_cpu, **ties,
+                            bf16_agreement=agree, logits_hw=list(card_logits.shape[-2:]))
+        timings[arch] = {dt: dict(ms=ms[dt], frames_per_s=b / ms[dt] * 1e3,
+                                  forward_ms=fwd[dt], forward_tflops=gflop * b / fwd[dt],
+                                  runs=runs[dt]) for dt in ms}
+        timings[arch]["gflop_per_frame"] = gflop
+        _log(f"model {arch}: logits {tuple(card_logits.shape[-2:])} for a {mh}x{mw} input; fp32 "
+             f"card vs cpu (b={b_cpu}, {cpu_s:.1f} s on the CPU) max abs err {err:.3e}, "
+             f"{ties['tie_pixels']} tie pixels, {ties['flips']} argmax flips, "
+             f"{ties['class_map_diff']} class-map pixels differ (logits up to {scale:.2f}: gate "
+             f"and tie gap x {scale:.2f}); bf16 class maps against fp32 "
+             f"{agree:.6f}; {gflop:.2f} GFLOP a frame")
+        for dt in ms:
+            _log(f"model {arch} {dt} b={b}: {ms[dt]:.3f} ms/batch {runs[dt]['ms']}, "
+                 f"{b / ms[dt] * 1e3:.2f} frames/s; forward alone {fwd[dt]:.3f} ms "
+                 f"{runs[dt]['forward_ms']} = {gflop * b / fwd[dt]:.2f} TFLOP/s [{card}]")
+        _log(f"  ({time.time() - t0:.1f} s for {arch})")
+        del tap, tap_cpu, model16, step, step16
+    return cc_rec, counts, checks, timings
+
+
+def config_files(root: Path, H: int, W: int) -> dict:
+    """Three `--config` files in `root`: production's PipelineCfg saved as
+    YAML (`save_pipeline_yaml`), a legacy AppCfg layout (a 512x512 3-class
+    model, the camera's ROI over the cable, the mm scale, and the MQTT and
+    event sections the pipeline does not read) and a legacy RefactorConfig
+    layout (its ROI, laplacian burr, shape postprocess and event section).
+    Returns {path: file}."""
+    import yaml
+
+    from unet_tpu_torch.core.config import save_pipeline_yaml
+    from unet_tpu_torch.pipeline import presets
+
+    files = {name: root / f"{name}.yaml" for name in ("production", "app_cfg", "refactor_cfg")}
+    save_pipeline_yaml(presets.get_preset("production"), str(files["production"]))
+    app = {"camera": {"width": W, "height": H, "roi": {"enabled": True, "x": W * 7 // 40, "y": 0,
+                                                         "w": W * 27 // 40, "h": H}},
+           "model": {"input_size": [512, 512], "num_classes": 3, "weights": "best_model.pth"},
+           "scale": {"mm_per_px": 0.04}, "mqtt": {"host": "localhost", "port": 1883},
+           "event": {"burr_px": 50}}
+    refactor = {"roi": {"x": W // 8, "y": 0, "w": W * 3 // 4, "h": H},
+                "burr": {"band_out": 8, "laplacian_threshold": 30, "min_area": 10,
+                         "max_area": 800},
+                "postprocess": {"cable_min_area": 800, "cable_min_aspect": 1.2,
+                                "cable_max_center_offset": 0.4, "tape_ring_dilate": 15,
+                                "tape_ring_erode": 5},
+                "event": {"ratio_min": 1.02, "ratio_max": 1.8, "burr_frames": 2,
+                          "cooldown_frames": 10}}
+    files["app_cfg"].write_text(yaml.safe_dump(app))
+    files["refactor_cfg"].write_text(yaml.safe_dump(refactor))
+    return files
+
+
+def phase_config_runs(H=448, W=800, n_frames=24, model_size=None, device="cuda"):
+    """`cli infer --config` through the engine (`engine_run`) over n_frames
+    HxW `synthetic_frames` written as .bmp: production's YAML with a seeded
+    NestedUNet .pth, the AppCfg layout with `--arch
+    lightweight:mobilenet_v3_small` (the CLI's seeded weights), the
+    RefactorConfig layout with a seeded 7-class SimpleUNet .pth (event
+    detector on, from the file's event section). Each run's B1 launches per
+    batch held to ENGINE_PER_BATCH, every events.csv row to the step's.
+    Returns ({path: launch counts per batch}, record)."""
+    import tempfile
+
+    size = ["--model-size", str(model_size)] if model_size else []
+    record, counts = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_config_") as tmp:
+        tmp = Path(tmp)
+        src = write_bmp_dir(tmp / "frames", synthetic_frames(n_frames, H, W, seed=4))
+        files = config_files(tmp, H, W)
+        pth = {"nested_unet": str(tmp / "nested_unet.pth"), "simple_unet": str(tmp / "simple.pth")}
+        torch.save(seeded_nested_unet().state_dict(), pth["nested_unet"])
+        torch.save(seeded_model("simple_unet", num_classes=7).state_dict(), pth["simple_unet"])
+        for name, model, flags in (
+                ("production", pth["nested_unet"], []),
+                ("app_cfg", None, ["--arch", "lightweight:mobilenet_v3_small"]),
+                ("refactor_cfg", pth["simple_unet"], [])):
+            path = f"config_{name}"
+            counts[f"engine_{path}"], record[path] = engine_run(
+                path, src, model, ["--config", str(files[name])] + flags + size,
+                tmp / f"out_{name}", device)
+            detector = (tmp / f"out_{name}" / "detector_events.csv").exists()
+            if detector != (name == "refactor_cfg"):
+                raise AssertionError(f"cli infer --config {name}: event detector "
+                                     f"{'on' if detector else 'off'}")
+            record[path]["event_detector"] = detector
+    return counts, record
+
+
+def phase_trace(step, frames, log_dir) -> dict:
+    """One step inside `core.profiling.device_trace(log_dir)`: the trace file
+    must name B1's cluster kernel. Returns the file's size and the names of
+    the hand-written kernels it holds."""
+    from unet_tpu_torch.core.profiling import device_trace
+
+    with device_trace(str(log_dir)):
+        step(frames)
+    files = sorted(Path(log_dir).glob("*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"device_trace wrote {len(files)} trace files in {log_dir}")
+    text = files[0].read_text()
+    names = [k for k in ("cc_propagate_cluster_kernel", "cc_propagate_global_kernel",
+                         "nlm_kernel", "qconv_wgmma_kernel") if k in text]
+    if "cc_propagate_cluster_kernel" not in names:
+        raise AssertionError("the device trace does not name B1's cluster kernel")
+    _log(f"device_trace: {files[0].name}, {len(text)} bytes, names {names}")
+    return dict(bytes=len(text), kernels=names)
+
+
 def main() -> int:
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -2073,8 +2376,17 @@ def main() -> int:
     if len(new_sites) != 6:
         raise AssertionError(f"new B1 sites not recorded: {sorted(pre_rec)}")
 
+    # -- the model zoo through two_stage, fp32 and bf16; one step traced
+    mod_rec, mod_counts, mod_checks, mod_timings = phase_models(expect["two_stage"], H, W,
+                                                                card=card)
+    counts.update(mod_counts)
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as d:
+        trace = phase_trace(stages.build_step(ColourClassModel(), cfgs["two_stage"], "cuda"),
+                            torch.from_numpy(scenes["two_stage"](8, 0)).cuda(), d)
+
     # -- kernels against their plain versions, and their times
-    cc_launch, cc_err = phase_cc({**cc_rec, **new_sites})
+    cc_launch, cc_err = phase_cc({**cc_rec, **new_sites, **mod_rec})
     cc_trace = trace_cc(cc_rec)
     cc_batches = trace_cc_batches(cc_rec)
     nlm_launch, nlm_err = phase_nlm(nlm_rec, sms, clock_mhz * 1e6)
@@ -2153,6 +2465,8 @@ def main() -> int:
     engine_counts, engine = phase_engine()
     gate_counts, gate_engine = phase_inspect_engine(H, W)
     engine_counts.update(gate_counts)
+    config_counts, config_runs = phase_config_runs(H, W)
+    engine_counts.update(config_counts)
 
     # the mma.sync kernel has no main-path launch (conv0_0.conv1 takes the c3
     # kernel): its entry holds its time forced at that site, the c3 kernel's
@@ -2207,7 +2521,8 @@ def main() -> int:
         "wrap_uniformity_server": serve,
         "geometry_checks": geo_checks, "upsample_b8": upsample, "int8_checks": int8_checks,
         "presets_b8": pre_timings, "preset_checks": pre_checks,
-        "engine": engine, "inspect_engine": gate_engine,
+        "engine": engine, "inspect_engine": gate_engine, "config_runs": config_runs,
+        "models_b8": mod_timings, "model_checks": mod_checks, "device_trace": trace,
         "card": card, "seconds": round(time.time() - t_start, 1)}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -125,10 +125,11 @@ def test_int8_short_directory_holds_out_agreement_frames(tmp_path, capsys):
 
 
 def test_what_is_not_ported_names_its_item(data, tmp_path):
+    """What is not ported names its ROADMAP item; what A12 and A13 ported
+    now runs: a pipeline YAML (`--config`), `--arch simple_unet` and a
+    ResNet50-NestedUNet .pth, each writing a row a frame."""
     base = ["infer", "--video", data["burr"], "--output", str(tmp_path / "o"), "--device", "cpu"]
     for argv, item in (
-            (base + ["--config", "p.yaml"], "A12"),
-            (base + ["--arch", "simple_unet"], "A13"),
             (base + ["--model", str(tmp_path)], "A15"),
             (["train", "--recipe", "3class_advanced", "--data-root", "x"], "A14"),
             (["evaluate", "--data-root", "x"], "A14"),
@@ -137,10 +138,18 @@ def test_what_is_not_ported_names_its_item(data, tmp_path):
             (["bench", "--config", "2"], "A5")):
         with pytest.raises(SystemExit, match=item):
             main(argv)
-    sd = {"conv0_0.0.weight": torch.zeros(1), "final.weight": torch.zeros(3, 1, 1, 1)}
-    torch.save({"model": sd, "epoch": 3}, tmp_path / "r50.pth")
-    with pytest.raises(SystemExit, match="nested_unet_resnet50.*A13"):
-        main(base + ["--model", str(tmp_path / "r50.pth")])
+    from unet_tpu_torch.core.config import save_pipeline_yaml
+
+    save_pipeline_yaml(presets.two_stage(), str(tmp_path / "p.yaml"))
+    torch.save({"model": cs.seeded_model("nested_unet_resnet50").state_dict(), "epoch": 3},
+               tmp_path / "r50.pth")
+    for i, flags in enumerate((["--config", str(tmp_path / "p.yaml"), "--model", data["pth"][3]],
+                               ["--arch", "simple_unet"],
+                               ["--model", str(tmp_path / "r50.pth")])):
+        out = tmp_path / f"run{i}"
+        argv = base[:4] + [str(out), "--device", "cpu", "--model-size", "32", "--no-video"]
+        assert main(argv + flags) == 0
+        assert len(_rows(out / "events.csv")) == 1 + 10
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             main(base[:-2] + ["--model-size", "32"])

@@ -27,7 +27,9 @@ def test_every_module_imports_without_jax():
               "inspect.window", "inspect.decision", "inspect.uniformity",
               "serve.multistream", "io.video", "io.camera", "events.emitters",
               "inspect.detectors", "pipeline.visualize", "pipeline.engine", "serve.service",
-              "serve.inspect_tool", "cli.main"):
+              "serve.inspect_tool", "cli.main", "core.config", "core.profiling",
+              "models.simple_unet", "models.resnet", "models.mobilenet", "models.shufflenet",
+              "models.unetpp_lightweight"):
         assert f"unet_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

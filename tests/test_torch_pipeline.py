@@ -155,14 +155,19 @@ def test_enhanced_colour_model_matches_jax(seed, denoise):
 
 def test_unported_branches_raise():
     """Every preset builds; what raises is a denoiser the JAX package does
-    not have (A9) and the ResNet50 encoder (A13)."""
+    not have (A9). The ResNet50 encoder (A13) builds, and its step too; the
+    BN-folded fast forward is the custom encoder's only."""
     model = ColourClassModel()
     for name in ("video_full", "strict", "robust", "spatial", "roi_first"):
         stages.build_step(model, presets.get_preset(name), device="cpu")
     with pytest.raises(NotImplementedError, match="A9"):
         stages.build_step(model, presets.enhanced(denoise="median"), device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        NestedUNet(num_classes=3, pretrained_encoder=True)
+    r50 = NestedUNet(num_classes=3, pretrained_encoder=True)
+    assert r50.pretrained_encoder and r50.conv4_0[0].conv3.out_channels == 2048
+    stages.build_step(r50, presets.two_stage(), device="cpu")
+    with pytest.raises(ValueError, match="custom-encoder NestedUNet"):
+        stages.build_step(r50, presets.two_stage().replace_in("segment", fast_forward=True),
+                          device="cpu")
 
 
 def _precision_flags():

@@ -1,8 +1,16 @@
 """Command-line interface of the port (counterpart of unet_tpu/cli/main.py).
 
   infer     video or image-dir inference with a preset (pipeline.presets)
+            or a pipeline YAML, legacy AppCfg and RefactorConfig layouts
+            included (--config, core.config)
   serve     N videos/cameras through one batched step (serve.service)
   inspect   YAML-configured window inspection (serve.inspect_tool)
+
+Every model of the JAX package runs (--arch): nested_unet,
+nested_unet_resnet50, simple_unet and lightweight[:encoder] with the
+custom, resnet18, resnet34, mobilenet_v3_small (the default),
+mobilenet_v3_large or shufflenet_v2_x1_0 encoder; a reference .pth of the
+first three families loads with its family read from its keys.
 
 `train`, `export`, `evaluate`, `tools` and `bench` are not ported yet; each
 names the ROADMAP item that ports it and exits non-zero.
@@ -13,6 +21,7 @@ for the CPU. Run `python -m unet_tpu_torch.cli <cmd> --help`.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import sys
@@ -29,19 +38,34 @@ _NOT_PORTED = {"train": "ROADMAP A14 (training)",
                "export": "ROADMAP A15 (export)",
                "bench": "ROADMAP A5 (the port bench)"}
 N_CALIB = 16
+ARCHS = ("nested_unet", "nested_unet_resnet50", "simple_unet",
+         "lightweight[:custom|resnet18|resnet34|mobilenet_v3_small|mobilenet_v3_large|"
+         "shufflenet_v2_x1_0]")
+_ARCH_HELP = (f"model: {', '.join(ARCHS)}; lightweight alone is "
+              f"lightweight:mobilenet_v3_small. A --model .pth sets its own family")
 
 
 def _build_model(num_classes: int, arch: str, dtype_str: str,
                  deep_supervision: bool = True) -> nn.Module:
-    """The model of `arch` with compute type `dtype_str`. The port has the
-    custom-encoder NestedUNet only."""
-    from unet_tpu_torch.models import NestedUNet
+    """The model of `arch` (unet_tpu/cli/main.py:44-60) with compute type
+    `dtype_str`: float32 parameters, the forward in float32 or bfloat16.
+    `deep_supervision` gives the NestedUNets their heads (the lightweight
+    model has none, as in the JAX package; SimpleUNet has none)."""
+    from unet_tpu_torch.models import LightweightNestedUNet, NestedUNet, SimpleUNet
 
-    if arch != "nested_unet":
-        raise SystemExit(f"arch {arch!r}: the port has only the custom-encoder NestedUNet; "
-                         f"other models are ROADMAP A13")
-    return NestedUNet(num_classes=num_classes, deep_supervision=deep_supervision,
-                      dtype=_DTYPES[dtype_str])
+    dtype = _DTYPES[dtype_str]
+    if arch in ("nested_unet", "nested_unet_resnet50"):
+        return NestedUNet(num_classes=num_classes, deep_supervision=deep_supervision,
+                          pretrained_encoder=arch == "nested_unet_resnet50", dtype=dtype)
+    if arch == "simple_unet":
+        return SimpleUNet(num_classes=num_classes, dtype=dtype)
+    if arch == "lightweight" or arch.startswith("lightweight:"):
+        enc = arch.split(":", 1)[1] if ":" in arch else "mobilenet_v3_small"
+        try:
+            return LightweightNestedUNet(num_classes=num_classes, encoder=enc, dtype=dtype)
+        except ValueError as e:
+            raise SystemExit(f"arch {arch!r}: {e}")
+    raise SystemExit(f"unknown arch {arch!r}; one of {', '.join(ARCHS)}")
 
 
 def _seed_weights(model: nn.Module, seed: int = 0) -> nn.Module:
@@ -60,8 +84,10 @@ def _seed_weights(model: nn.Module, seed: int = 0) -> nn.Module:
 
 def load_model(model_path: Optional[str], arch: str, dtype_str: str, fallback_classes: int):
     """(model in eval mode, num_classes, arch) from a reference .pth (its
-    family and class count read from its keys, loaded strictly), or, without
-    a path, seeded random weights (smoke mode)."""
+    family -- nested_unet, nested_unet_resnet50 or simple_unet -- and class
+    count read from its keys, loaded strictly, whatever `arch` says), or,
+    without a path, the model of `arch` with seeded random weights (smoke
+    mode)."""
     from unet_tpu_torch.models import convert
 
     if model_path:
@@ -70,14 +96,11 @@ def load_model(model_path: Optional[str], arch: str, dtype_str: str, fallback_cl
                              f"ROADMAP A15; pass a reference .pth")
         sd = convert.load_pth(model_path)
         kind = convert.detect_model_kind(sd)
-        if kind != "nested_unet":
-            raise SystemExit(f"--model {model_path}: a {kind} checkpoint; the port has only "
-                             f"the custom-encoder NestedUNet, other models are ROADMAP A13")
         num_classes = convert.infer_num_classes(sd)
-        model = _build_model(num_classes, arch, dtype_str,
+        model = _build_model(num_classes, kind, dtype_str,
                              deep_supervision="ds1_3.weight" in sd)
         model.load_state_dict(sd, strict=True)
-        return model.eval(), num_classes, arch
+        return model.eval(), num_classes, kind
     print("warning: no --model given; using random weights (smoke mode)")
     model = _seed_weights(_build_model(fallback_classes, arch, dtype_str))
     return model.eval(), fallback_classes, arch
@@ -129,20 +152,40 @@ def int8_cfg(model: nn.Module, cfg, video: str, device: str):
     return qcfg
 
 
+def config_hints(path: str, cfg) -> dict:
+    """The engine's settings for a `--config` file (unet_tpu/cli/main.py:
+    156-175): a YAML saved from a named preset keeps that preset's engine
+    behaviour (its name round-trips through the file); a legacy
+    RefactorConfig file runs the event detector with the file's `event`
+    section."""
+    from unet_tpu_torch.core.config import read_yaml
+    from unet_tpu_torch.inspect import EventConfig
+    from unet_tpu_torch.pipeline import engine_hints
+
+    if cfg.name != "refactor_cfg":
+        return engine_hints(cfg.name)
+    ev = read_yaml(path).get("event") or {}
+    allowed = {f.name for f in dataclasses.fields(EventConfig)}
+    return dict(event_detector_enabled=True,
+                event_cfg=EventConfig(**{k: v for k, v in ev.items() if k in allowed}))
+
+
 def infer_engine(args):
     """The InferenceEngine that `infer` runs with `args`."""
     from unet_tpu_torch.inspect import ThresholdConfig
     from unet_tpu_torch.pipeline import EngineConfig, InferenceEngine, engine_hints, get_preset
 
     if args.config:
-        raise SystemExit("--config: pipeline YAML files (core/config.load_pipeline_yaml) are "
-                         "ROADMAP A12; use --preset")
-    hints = engine_hints(args.preset)
-    preset_kwargs = {}
-    if args.preset == "two_stage":
-        preset_kwargs = dict(sensitivity=args.burr_sensitivity, rotate=args.rotate,
-                             normalize=args.normalize_resolution)
-    cfg = get_preset(args.preset, **preset_kwargs)
+        from unet_tpu_torch.core.config import load_pipeline_yaml
+        cfg = load_pipeline_yaml(args.config)
+        hints = config_hints(args.config, cfg)
+    else:
+        hints = engine_hints(args.preset)
+        preset_kwargs = {}
+        if args.preset == "two_stage":
+            preset_kwargs = dict(sensitivity=args.burr_sensitivity, rotate=args.rotate,
+                                 normalize=args.normalize_resolution)
+        cfg = get_preset(args.preset, **preset_kwargs)
     if args.model_size:
         cfg = cfg.replace_in("preprocess", model_size=(args.model_size, args.model_size))
 
@@ -156,6 +199,10 @@ def infer_engine(args):
     # the BN-folded forward: on for the custom-encoder NestedUNet unless
     # the user turns it off
     use_fast = {"auto": arch == "nested_unet", "on": True, "off": False}[args.fast]
+    for flag, on in (("--fast on", use_fast), ("--int8", args.int8)):
+        if on and arch != "nested_unet":
+            raise SystemExit(f"{flag} requires the custom-encoder NestedUNet "
+                             f"(models/fast_forward, models/quantized); this model is {arch}")
     if use_fast:
         cfg = cfg.replace_in("segment", fast_forward=True)
     if args.int8:
@@ -229,9 +276,10 @@ def build_parser() -> argparse.ArgumentParser:
     pi.add_argument("--output", required=True)
     pi.add_argument("--preset", default="two_stage")
     pi.add_argument("--config", default=None,
-                    help="pipeline YAML overriding --preset (ROADMAP A12)")
+                    help="pipeline YAML overriding --preset; legacy AppCfg and "
+                         "RefactorConfig layouts are migrated (core/config.py)")
     pi.add_argument("--model", default=None, help="reference .pth")
-    pi.add_argument("--arch", default="nested_unet")
+    pi.add_argument("--arch", default="nested_unet", help=_ARCH_HELP)
     pi.add_argument("--dtype", default="bfloat16", choices=list(_DTYPES))
     pi.add_argument("--batch", type=int, default=8)
     pi.add_argument("--frame-stride", type=int, default=1)
@@ -274,7 +322,7 @@ def build_parser() -> argparse.ArgumentParser:
     pm.add_argument("--output", required=True)
     pm.add_argument("--preset", default="wrap_7class")
     pm.add_argument("--model", default=None, help="reference .pth")
-    pm.add_argument("--arch", default="nested_unet")
+    pm.add_argument("--arch", default="nested_unet", help=_ARCH_HELP)
     pm.add_argument("--dtype", default="bfloat16", choices=list(_DTYPES))
     pm.add_argument("--model-size", type=int, default=None)
     pm.add_argument("--frame-stride", type=int, default=1)

@@ -1,6 +1,7 @@
 """Building blocks of the UNet family (counterpart of
-unet_tpu/models/blocks.py:14-30, 47-49), NCHW; and `fp32_convs`, the
-cuDNN precision pin of the float32 forwards."""
+unet_tpu/models/blocks.py), NCHW; `ComputeDtype`, the compute type of every
+model of the port; and `fp32_convs`, the cuDNN precision pin of the float32
+forwards."""
 from __future__ import annotations
 
 import contextlib
@@ -9,6 +10,26 @@ import threading
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.func import functional_call
+
+
+class ComputeDtype(nn.Module):
+    """A model whose `dtype` is its compute type, as flax's `dtype` is: the
+    parameters stay float32, and a forward in another type runs on copies of
+    them (and of the BN statistics) cast to it, input included. Subclasses
+    write `compute(x)`; `forward` casts and calls it."""
+
+    dtype: torch.dtype = torch.float32
+
+    def forward(self, x: torch.Tensor):
+        if next(self.parameters()).dtype != self.dtype:   # not yet inside the cast call
+            state = {k: v.to(self.dtype) if v.is_floating_point() else v
+                     for k, v in self.state_dict().items()}
+            return functional_call(self, state, (x.to(self.dtype),))
+        return self.compute(x)
+
+    def compute(self, x: torch.Tensor):
+        raise NotImplementedError
 
 
 class ConvBlock(nn.Module):
@@ -25,6 +46,16 @@ class ConvBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.bn1(self.conv1(x)))
         return F.relu(self.bn2(self.conv2(x)))
+
+
+class DoubleConv(nn.Sequential):
+    """conv3x3 -> ReLU, twice, no BN: SimpleUNet's block (counterpart of
+    unet_tpu/models/blocks.py:33-44; reference src/models/simple_unet.py:31-38),
+    with the reference's keys `0` and `2`."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__(nn.Conv2d(cin, cout, 3, padding=1), nn.ReLU(),
+                         nn.Conv2d(cout, cout, 3, padding=1), nn.ReLU())
 
 
 def max_pool2(x: torch.Tensor) -> torch.Tensor:

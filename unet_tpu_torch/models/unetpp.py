@@ -1,12 +1,21 @@
-"""UNet++ ("NestedUNet"), custom encoder (counterpart of
-unet_tpu/models/unetpp.py:38-95; reference src/models/unetpp.py:29-135).
+"""UNet++ ("NestedUNet") with the custom or the ResNet50 encoder
+(counterpart of unet_tpu/models/unetpp.py; reference
+src/models/unetpp.py:29-135).
 
 As in the reference, the decoder is a plain U-Net chain
 (x3_1 -> x2_2 -> x1_3 -> x0_4) with `[skip, up]` concatenation and a
 bilinear x2 align-corners upsample. State-dict keys are the reference's
-(`conv0_0.conv1.weight`, ..., `final.weight`), so a reference `.pth` loads
+(`conv0_0.conv1.weight`, ..., `final.weight`; with the ResNet50 encoder
+`conv0_0` = Sequential(conv, bn, relu, maxpool) and `conv1_0` ...
+`conv4_0` = torchvision's layer1 ... layer4), so a reference `.pth` loads
 with `load_state_dict`, and `models.convert.state_dict_from_flax` carries
 the JAX package's weights across.
+
+The ResNet50 stem folds the max pool, so its stages 0 and 1 share stride 4:
+the decoder's last step leaves x1_3 as it is where it already has the
+skip's size (the JAX package's repair, unet_tpu/models/unetpp.py:75-83;
+the reference's blind x2 cannot concatenate there), and the logits come out
+at a quarter of the input's side.
 """
 from __future__ import annotations
 
@@ -15,39 +24,45 @@ from typing import List, Union
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.func import functional_call
 
-from unet_tpu_torch.models.blocks import ConvBlock, max_pool2
+from unet_tpu_torch.models.blocks import ComputeDtype, ConvBlock, max_pool2
+from unet_tpu_torch.models.resnet import resnet50_stages
 
 NB_FILTER = (32, 64, 128, 256, 512)
+RESNET50_CHANNELS = (64, 256, 512, 1024, 2048)
 
 
-class NestedUNet(nn.Module):
-    """Args mirror the reference constructor (src/models/unetpp.py:40-46).
-    In eval mode the forward returns the (B, num_classes, H, W) logits; in
-    train mode with deep supervision, [out, ds1_3, ds2_2, ds3_1].
+class NestedUNet(ComputeDtype):
+    """Args mirror the reference constructor (src/models/unetpp.py:40-46);
+    `pretrained_encoder` selects the ResNet50 encoder's topology (its
+    weights come from a checkpoint: none is downloaded). In eval mode the
+    forward returns the (B, num_classes, h, w) logits; in train mode with
+    deep supervision, [out, ds1_3, ds2_2, ds3_1], the heads resized to the
+    input's size.
 
     `dtype` is the compute type, as flax's `dtype` is
-    (unet_tpu/models/unetpp.py:44): the parameters stay float32, and a
-    forward in another type runs on copies of them cast to it, input
-    included. The BN-folded and int8 forwards (models/fast_forward.py,
-    models/quantized.py) read the float32 parameters and compute in
-    `dtype`."""
+    (unet_tpu/models/unetpp.py:44; models.blocks.ComputeDtype). The
+    BN-folded and int8 forwards (models/fast_forward.py,
+    models/quantized.py) read the float32 parameters of the custom-encoder
+    model and compute in `dtype`."""
 
     def __init__(self, num_classes: int, input_channels: int = 3,
                  deep_supervision: bool = True, pretrained_encoder: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if pretrained_encoder:
-            raise NotImplementedError(
-                "the ResNet50 encoder is ROADMAP item A13 (other models)")
         self.deep_supervision = deep_supervision
-        f = NB_FILTER
-        self.conv0_0 = ConvBlock(input_channels, f[0])
-        self.conv1_0 = ConvBlock(f[0], f[1])
-        self.conv2_0 = ConvBlock(f[1], f[2])
-        self.conv3_0 = ConvBlock(f[2], f[3])
-        self.conv4_0 = ConvBlock(f[3], f[4])
+        self.pretrained_encoder = pretrained_encoder
+        if pretrained_encoder:
+            f = RESNET50_CHANNELS
+            (self.conv0_0, self.conv1_0, self.conv2_0, self.conv3_0,
+             self.conv4_0) = resnet50_stages()
+        else:
+            f = NB_FILTER
+            self.conv0_0 = ConvBlock(input_channels, f[0])
+            self.conv1_0 = ConvBlock(f[0], f[1])
+            self.conv2_0 = ConvBlock(f[1], f[2])
+            self.conv3_0 = ConvBlock(f[2], f[3])
+            self.conv4_0 = ConvBlock(f[3], f[4])
         self.conv3_1 = ConvBlock(f[3] + f[4], f[3])
         self.conv2_2 = ConvBlock(f[2] + f[3], f[2])
         self.conv1_3 = ConvBlock(f[1] + f[2], f[1])
@@ -59,22 +74,28 @@ class NestedUNet(nn.Module):
             self.ds1_3 = nn.Conv2d(f[1], num_classes, 1)
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> Union[torch.Tensor, List[torch.Tensor]]:
-        if self.final.weight.dtype != self.dtype:   # not yet inside the cast call
-            state = {k: v.to(self.dtype) if v.is_floating_point() else v
-                     for k, v in self.state_dict().items()}
-            return functional_call(self, state, (x.to(self.dtype),))
-        up = lambda t: F.interpolate(t, scale_factor=2, mode="bilinear",
-                                     align_corners=True)
-        x0_0 = self.conv0_0(x)
-        x1_0 = self.conv1_0(max_pool2(x0_0))
-        x2_0 = self.conv2_0(max_pool2(x1_0))
-        x3_0 = self.conv3_0(max_pool2(x2_0))
-        x4_0 = self.conv4_0(max_pool2(x3_0))
-        x3_1 = self.conv3_1(torch.cat([x3_0, up(x4_0)], 1))
-        x2_2 = self.conv2_2(torch.cat([x2_0, up(x3_1)], 1))
-        x1_3 = self.conv1_3(torch.cat([x1_0, up(x2_2)], 1))
-        x0_4 = self.conv0_4(torch.cat([x0_0, up(x1_3)], 1))
+    def compute(self, x: torch.Tensor) -> Union[torch.Tensor, List[torch.Tensor]]:
+        def up_to(t, skip):
+            if t.shape[2:] == skip.shape[2:]:
+                return t
+            return F.interpolate(t, scale_factor=2, mode="bilinear", align_corners=True)
+
+        if self.pretrained_encoder:
+            x0_0 = self.conv0_0(x)
+            x1_0 = self.conv1_0(x0_0)
+            x2_0 = self.conv2_0(x1_0)
+            x3_0 = self.conv3_0(x2_0)
+            x4_0 = self.conv4_0(x3_0)
+        else:
+            x0_0 = self.conv0_0(x)
+            x1_0 = self.conv1_0(max_pool2(x0_0))
+            x2_0 = self.conv2_0(max_pool2(x1_0))
+            x3_0 = self.conv3_0(max_pool2(x2_0))
+            x4_0 = self.conv4_0(max_pool2(x3_0))
+        x3_1 = self.conv3_1(torch.cat([x3_0, up_to(x4_0, x3_0)], 1))
+        x2_2 = self.conv2_2(torch.cat([x2_0, up_to(x3_1, x2_0)], 1))
+        x1_3 = self.conv1_3(torch.cat([x1_0, up_to(x2_2, x1_0)], 1))
+        x0_4 = self.conv0_4(torch.cat([x0_0, up_to(x1_3, x0_0)], 1))
         out = self.final(x0_4)
         if self.deep_supervision and self.training:
             rs = lambda t: F.interpolate(t, size=x.shape[2:], mode="bilinear",

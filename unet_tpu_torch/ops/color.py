@@ -1,4 +1,4 @@
-"""Color-space conversions (counterpart of unet_tpu/ops/color.py:16-40,
+"""Color-space conversions (counterpart of unet_tpu/ops/color.py:16-52,
 59-119).
 
 Float32 arithmetic runs in the reference's left-to-right order, with each
@@ -34,6 +34,16 @@ def rgb2gray(img: torch.Tensor) -> torch.Tensor:
 def bgr2gray(img: torch.Tensor) -> torch.Tensor:
     """(..., H, W, 3) BGR -> luma (cv2.COLOR_BGR2GRAY)."""
     return rgb2gray(bgr2rgb(img))
+
+
+def gamma_lut(img: torch.Tensor, gamma: float) -> torch.Tensor:
+    """Gamma correction as a power (the reference's LUT,
+    src/refactor/preprocess.py:52-57; unet_tpu/ops/color.py:42-52): uint8
+    in gives uint8 out, float in [0, 1] gives float."""
+    if not img.dtype.is_floating_point:
+        y = torch.pow(img.to(torch.float32) / 255.0, 1.0 / gamma) * 255.0
+        return torch.clamp(torch.round(y), 0, 255).to(img.dtype)
+    return torch.pow(img, 1.0 / gamma).to(img.dtype)
 
 
 # ---------------------------------------------------------------------------

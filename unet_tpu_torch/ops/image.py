@@ -1,8 +1,9 @@
 """Geometric and filtering image ops with OpenCV-matching semantics
-(counterpart of unet_tpu/ops/image.py:32-92, 95-134, 163-216, 219-313,
+(counterpart of unet_tpu/ops/image.py:32-92, 95-156, 163-216, 219-313,
 325-446). The fp32 NestedUNet's decoder upsamples with F.interpolate
-(models/unetpp.py); the bf16 and int8 forwards with
-`upsample2x_align_corners`.
+(models/unetpp.py); the bf16 and int8 forwards and the lightweight UNet++
+with `upsample2x_align_corners`, whose deep-supervision heads and odd-sized
+skips use `resize_bilinear_align_corners`.
 
 Conventions, as in the reference:
   * INTER_LINEAR uses half-pixel centers: src = (dst + 0.5) * scale - 0.5;
@@ -149,6 +150,37 @@ def upsample2x_align_corners(x: torch.Tensor, h_axis: int, w_axis: int) -> torch
         return (a * w0 + b * w1).to(t.dtype)
 
     return axis_up(axis_up(x, h_axis), w_axis)
+
+
+def _align_corners_taps(out: int, n: int):
+    """Source rows and lerp weight of an align-corners resize from n to out
+    (n, out > 1): src = i * (n - 1) / (out - 1)."""
+    src = np.arange(out, dtype=np.float64) * (n - 1) / (out - 1)
+    i0 = np.floor(src).astype(np.int64)
+    return i0, np.minimum(i0 + 1, n - 1), (src - i0).astype(np.float32)
+
+
+def resize_bilinear_align_corners(x: torch.Tensor, out_hw: Sequence[int], h_axis: int,
+                                  w_axis: int) -> torch.Tensor:
+    """F.interpolate(..., mode='bilinear', align_corners=True) to any size,
+    as the JAX package computes it (unet_tpu/ops/image.py:137-156): one
+    axis at a time, `a * (1 - w) + b * w` with the weight cast to x.dtype
+    and every operation rounded to x.dtype, so the result is bit-identical
+    to the JAX function in float32 and in bf16 (F.interpolate in bf16 is
+    not). An axis of size 1, or resized to 1, takes row 0."""
+    def axis_rs(t, axis, out):
+        n = t.shape[axis]
+        if n == out:
+            return t
+        if out == 1 or n == 1:
+            return t.index_select(axis, torch.zeros(out, dtype=torch.int64, device=t.device))
+        i0, i1, w = _table(_align_corners_taps, out, n, t.device)
+        shape = [1] * t.ndim
+        shape[axis] = out
+        w = w.to(t.dtype).reshape(shape)
+        return t.index_select(axis, i0) * (1 - w) + t.index_select(axis, i1) * w
+
+    return axis_rs(axis_rs(x, h_axis, int(out_hw[0])), w_axis, int(out_hw[1]))
 
 
 def rotate90_ccw(img: torch.Tensor, channel_dim: bool = None) -> torch.Tensor:

@@ -217,7 +217,7 @@ def segment_forward(model: nn.Module, cfg: PipelineCfg,
     model = model.to(device).eval()
     if not (seg.fast_forward or seg.int8_scales):
         return lambda x: forward_logits(model, x.permute(0, 3, 1, 2).contiguous())
-    if not isinstance(model, NestedUNet):
+    if not (isinstance(model, NestedUNet) and not model.pretrained_encoder):
         raise ValueError("segment.fast_forward/int8_scales require a "
                          "custom-encoder NestedUNet (models/fast_forward)")
     sd = model.state_dict()
