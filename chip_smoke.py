@@ -121,8 +121,29 @@ Phases; any failure exits non-zero and prints no result line:
      the CPU's on 2 frames (atol/rtol 1e-3, 2e-3 for the resnet50 encoder),
      class maps and px counts against the CPU's but on tie pixels
      (`compare_with_ties`), bf16 class maps against fp32 at >= 0.995, ms per
-     batch and the forward's ms and TFLOP/s; then one two_stage step inside
-     `core.profiling.device_trace`, whose trace must name B1's kernel
+     batch and the forward's ms and TFLOP/s; the resnet50 NestedUNet again
+     with BN statistics from one train-mode pass over the frames
+     (`calibrated_model`, `momentum=None`), its fp32 logits card vs CPU
+     within atol/rtol 1e-3 unscaled (`_calibrated_check`); then one
+     two_stage step inside `core.profiling.device_trace`, whose trace must
+     name B1's kernel
+  9. training (`phase_train`, after phase 7): the 3-class NestedUNet with
+     deep supervision at full width, the `3class_advanced` loss and
+     optimizer (accumulation 2), seeded weights: one micro-step at b=2,
+     512^2, card against CPU (fp32 with TF32 pinned off: loss and its parts
+     within 1e-4 relative, grad norm 1e-3, BN statistics 1e-5; bf16: the
+     logits, gradient and BN statistics within twice the CPU's own
+     bf16-vs-fp32 RMS distance, the scalars within 5e-2); ms per
+     micro-step (median of 3 windows of 8 after two optimizer steps) and
+     per optimizer step, train frames/s, TFLOP/s, the host's time to queue
+     a micro-step and peak memory at b=8 in fp32, bf16 and bf16 with remat
+     (no hand-written kernel launches);
+     then the CLI over 40 + 8 labelled 800x448 scenes written as .png:
+     `train --recipe 3class_advanced --epochs 2`, `evaluate` of its best
+     checkpoint (the loop's logged mIoU within 1e-3), `infer --model
+     best.pth --preset two_stage` (2 B1 launches a batch, events.csv
+     against the step) and `train --recipe overfit_test --image-size 32`
+     (its mIoU > 0.98 gate)
 Then, on the last two lines, the kernels' JSON record and
 {"ok": true, "device": {...}}.
 
@@ -2087,6 +2108,34 @@ def compare_with_ties(got, want, got_logits, want_logits, what: str,
                 class_map_diff=int(diff.sum()))
 
 
+# the models whose BN statistics `calibrated_model` draws from their own
+# activations, held card against CPU to the unscaled logits gate
+CALIBRATED_ARCHS = ("nested_unet_resnet50",)
+CALIBRATED_TOL = dict(atol=1e-3, rtol=1e-3)
+
+
+def _calibrated_check(arch, frames, cfg, b_cpu, device) -> dict:
+    """`calibrated_model(arch)` through the two_stage step, card against CPU
+    on the first b_cpu frames: fp32 logits within CALIBRATED_TOL, unscaled."""
+    import copy
+
+    from unet_tpu_torch.pipeline import stages
+
+    model = calibrated_model(arch, frames, cfg, device)
+    taps = {"card": LogitsTap(model), "cpu": LogitsTap(copy.deepcopy(model).cpu())}
+    stages.build_step(taps["card"], cfg, device=device)(frames[:b_cpu])
+    stages.build_step(taps["cpu"], cfg, device="cpu")(frames[:b_cpu].cpu())
+    got, want = taps["card"].logits.float().cpu(), taps["cpu"].logits.float()
+    err = float((got - want).abs().max())
+    peak = float(want.abs().max())
+    _log(f"model {arch}, BN statistics from one train-mode pass over the frames: logits up to "
+         f"{peak:.3f}, card vs cpu max abs err {err:.3e} (unscaled gate {CALIBRATED_TOL})")
+    if not torch.allclose(got, want, **CALIBRATED_TOL):
+        raise AssertionError(f"{arch} with calibrated BN statistics: card logits differ from "
+                             f"the CPU's by {err} (unscaled {CALIBRATED_TOL})")
+    return dict(logits_max_abs_err=err, logits_max_abs=peak, **CALIBRATED_TOL)
+
+
 def phase_models(expect, H, W, archs=MODEL_ARCHS, device="cuda", b=8, b_cpu=2, reps=5,
                  model_size=None, card=""):
     """Every model of the zoo (`archs`, built by the CLI's `_build_model`
@@ -2134,6 +2183,8 @@ def phase_models(expect, H, W, archs=MODEL_ARCHS, device="cuda", b=8, b_cpu=2, r
             raise AssertionError(f"{arch}: fp32 logits differ from the CPU's by {err} "
                                  f"(atol {atol} x {scale:.1f}, rtol 1e-3)")
         ties = compare_with_ties(out, ref, got_l, want_l, f"{arch} fp32", gap=TIE_GAP * scale)
+        calibrated = (_calibrated_check(arch, frames, cfg, b_cpu, device)
+                      if arch in CALIBRATED_ARCHS else None)
         model16 = seeded_model(arch, dtype="bfloat16")
         step16 = stages.build_step(model16, cfg, device=device)
         out16, counts[f"{arch}_bf16"] = _drive(step16, frames, expect, f"two_stage {arch} bf16, "
@@ -2156,7 +2207,7 @@ def phase_models(expect, H, W, archs=MODEL_ARCHS, device="cuda", b=8, b_cpu=2, r
         fwd = {dt: float(np.mean(r["forward_ms"])) for dt, r in runs.items()}
         ms = {dt: float(np.mean(r["ms"])) for dt, r in runs.items()}
         checks[arch] = dict(logits_max_abs_err=err, logits_scale=scale, atol=atol,
-                            cpu_frames=b_cpu, **ties,
+                            cpu_frames=b_cpu, **ties, calibrated=calibrated,
                             bf16_agreement=agree, logits_hw=list(card_logits.shape[-2:]))
         timings[arch] = {dt: dict(ms=ms[dt], frames_per_s=b / ms[dt] * 1e3,
                                   forward_ms=fwd[dt], forward_tflops=gflop * b / fwd[dt],
@@ -2263,6 +2314,351 @@ def phase_trace(step, frames, log_dir) -> dict:
         raise AssertionError("the device trace does not name B1's cluster kernel")
     _log(f"device_trace: {files[0].name}, {len(text)} bytes, names {names}")
     return dict(bytes=len(text), kernels=names)
+
+
+# ---------------------------------------------------------------------------
+# training (phase 9)
+# ---------------------------------------------------------------------------
+
+TRAIN_RTOL = {"loss": 1e-4, "focal": 1e-4, "tversky": 1e-4, "dice": 1e-4, "grad_norm": 1e-3}
+TRAIN_STATS_ATOL = 1e-5   # BN running statistics after the step, card vs CPU
+TRAIN_BF16_RTOL = 5e-2    # bf16 scalars against the CPU's fp32: a guard against gross faults
+
+
+def train_scenes(n: int, h: int, w: int, seed: int = 0):
+    """n labelled cable scenes: (n, h, w, 3) uint8 BGR frames and (n, h, w)
+    uint8 masks (0 background, 1 cable, 2 tape). A vertical cable strip of
+    drawn position and width over a textured background, a tape band of
+    drawn rows wider than the cable, sensor noise of sigma 6."""
+    frames = np.empty((n, h, w, 3), np.uint8)
+    masks = np.zeros((n, h, w), np.uint8)
+    for i in range(n):
+        r = np.random.default_rng(seed + i)
+        bgr = r.uniform(40, 70, (h, w, 3))
+        cw = max(4, int(w * r.uniform(0.08, 0.14)))
+        x1 = int(r.integers(w // 5, 4 * w // 5 - cw))
+        y1 = int(r.integers(h // 10, h // 2))
+        y2 = y1 + max(4, int(h * r.uniform(0.25, 0.45)))
+        t = max(1, cw // 2)
+        masks[i, :, x1:x1 + cw] = 1
+        bgr[:, x1:x1 + cw] = (180, 180, 175)
+        masks[i, y1:y2, x1 - t:x1 + cw + t] = 2
+        bgr[y1:y2, x1 - t:x1 + cw + t] = (60, 90, 200)
+        bgr += r.normal(0, 6.0, (h, w, 3))
+        frames[i] = np.clip(bgr, 0, 255).astype(np.uint8)
+    return frames, masks
+
+
+def write_split(root: Path, n_train: int, n_val: int, h: int, w: int, seed: int = 0) -> str:
+    """`train_scenes` as a labelled split the datasets read:
+    root/{train,val}/{images,masks}/scene_NNN.png."""
+    import cv2
+
+    for split, n, s in (("train", n_train, seed), ("val", n_val, seed + 1000)):
+        frames, masks = train_scenes(n, h, w, s)
+        for sub in ("images", "masks"):
+            (root / split / sub).mkdir(parents=True, exist_ok=True)
+        for i in range(n):
+            cv2.imwrite(str(root / split / "images" / f"scene_{i:03d}.png"), frames[i])
+            cv2.imwrite(str(root / split / "masks" / f"scene_{i:03d}.png"), masks[i])
+    return str(root)
+
+
+def seeded_train_model(seed: int = 0, dtype: str = "float32", remat: bool = False) -> nn.Module:
+    """The 3-class NestedUNet with deep supervision at full width (32-512
+    filters), its state drawn as `seeded_nested_unet` draws it."""
+    from unet_tpu_torch.models import NestedUNet
+
+    return _seed_state(NestedUNet(3, deep_supervision=True, dtype=getattr(torch, dtype),
+                                  remat=remat), seed)
+
+
+def _advanced_recipe():
+    """The loss and optimizer of `cli train --recipe 3class_advanced`
+    (train/recipes.py), the schedule's length set for a short run."""
+    from unet_tpu_torch.train.trainer import LossCfg, OptimCfg
+
+    loss = LossCfg(kind="advanced", class_weights=(0.02, 1.0, 1.0), weight_focal=0.35,
+                   weight_tversky=0.45, weight_dice=0.20, tversky_alpha=0.25, tversky_beta=0.75,
+                   ds_weights=(0.1, 0.2, 0.3, 0.4))
+    optim = OptimCfg(lr=2e-4, weight_decay=1e-4, schedule="onecycle", total_steps=100,
+                     pct_start=0.1, div_factor=10, final_div_factor=100, clip_norm=1.0,
+                     accum_steps=2)
+    return loss, optim
+
+
+def _train_batch(b: int, size: int, seed: int):
+    frames, masks = train_scenes(b, size, size, seed)
+    return frames[..., ::-1].astype(np.float32) / 255.0, masks.astype(np.int64)
+
+
+def _one_step(model: nn.Module, images, labels, device: str) -> dict:
+    """One micro-step of the 3class_advanced loss and optimizer on `device`:
+    its metrics, and on the CPU the main head's logits, the gradient (all
+    parameters, one vector) and the BN running statistics after it."""
+    from unet_tpu_torch.train.trainer import create_train_state, make_train_step, upload
+
+    loss, optim = _advanced_recipe()
+    state = create_train_state(model, optim, device)
+    seen = {}
+    hook = model.register_forward_hook(
+        lambda m, i, out: seen.update(logits=out[0].detach().float().cpu()))
+    state, metrics = make_train_step(loss)(state, *upload(images, labels, device))
+    hook.remove()
+    out = {k: float(v) for k, v in metrics.items()}
+    out["logits"] = seen["logits"]
+    out["grads"] = torch.cat([g.detach().float().cpu().reshape(-1) for g in state.acc_grads])
+    out["stats"] = torch.cat([v.detach().float().cpu().reshape(-1) for k, v in
+                              state.model.state_dict().items() if "running" in k])
+    return out
+
+
+def _rms(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).square().mean().sqrt())
+
+
+def _train_check(size: int, b: int, device: str) -> dict:
+    """One micro-step card against CPU from the same seeded weights and batch.
+    fp32: the loss and its parts within 1e-4 relative, the gradient norm
+    within 1e-3, the BN statistics within 1e-5. bf16: the main head's
+    logits, the gradient and the BN statistics each within twice the CPU's
+    own bf16-vs-fp32 distance (RMS over the tensor); a scalar's bf16 error
+    is one draw, and held to twice another draw it fails about 3 times in
+    10 by chance, so the loss, its parts and the norm are held only within
+    TRAIN_BF16_RTOL of the CPU's fp32 (a guard against gross faults), and
+    printed beside the CPU's bf16."""
+    images, labels = _train_batch(b, size, seed=90)
+    t = time.time()
+    cpu = {dt: _one_step(seeded_train_model(dtype=dt), images, labels, "cpu")
+           for dt in ("float32", "bfloat16")}
+    cpu_s = time.time() - t
+    dev = {dt: _one_step(seeded_train_model(dtype=dt), images, labels, device)
+           for dt in ("float32", "bfloat16")}
+    f32, c32, d16, c16 = dev["float32"], cpu["float32"], dev["bfloat16"], cpu["bfloat16"]
+    for k, rtol in TRAIN_RTOL.items():
+        if abs(f32[k] - c32[k]) > rtol * abs(c32[k]):
+            raise AssertionError(f"train step fp32 {k}: {device} {f32[k]} vs cpu {c32[k]} "
+                                 f"(rtol {rtol})")
+    stats = float((f32["stats"] - c32["stats"]).abs().max())
+    if stats > TRAIN_STATS_ATOL:
+        raise AssertionError(f"train step fp32: BN statistics differ by {stats} > "
+                             f"{TRAIN_STATS_ATOL}")
+    bf16 = {k: dict(card=_rms(d16[k], c32[k]), cpu=_rms(c16[k], c32[k]))
+            for k in ("logits", "grads", "stats")}
+    bf16.update({k: dict(card=abs(d16[k] - c32[k]), cpu=abs(c16[k] - c32[k]))
+                 for k in TRAIN_RTOL})
+    fmt = lambda d: ", ".join(f"{k} {v['card']:.3e} ({v['cpu']:.3e})" for k, v in d.items())
+    _log(f"train step card vs cpu (NestedUNet 3-class DS, {size}^2, b={b}, 3class_advanced, "
+         f"{cpu_s:.1f} s on the CPU): fp32 loss {f32['loss']:.7f} vs {c32['loss']:.7f}, "
+         f"parts {[round(f32[k], 7) for k in ('focal', 'tversky', 'dice')]} vs "
+         f"{[round(c32[k], 7) for k in ('focal', 'tversky', 'dice')]}, grad norm "
+         f"{f32['grad_norm']:.6f} vs {c32['grad_norm']:.6f}, BN statistics {stats:.3e}; bf16 "
+         f"distance from the CPU's fp32 (the CPU's bf16 in brackets): {fmt(bf16)}")
+    for k, d in bf16.items():
+        if k in TRAIN_RTOL and d["card"] > TRAIN_BF16_RTOL * abs(c32[k]):
+            raise AssertionError(f"train step bf16 {k}: {device} {d16[k]} vs the CPU's fp32 "
+                                 f"{c32[k]} (rtol {TRAIN_BF16_RTOL})")
+        if k not in TRAIN_RTOL and d["card"] > 2 * d["cpu"]:
+            raise AssertionError(f"train step bf16 {k}: {device} is {d['card']} (RMS) from the "
+                                 f"CPU's fp32, more than twice the CPU's bf16 ({d['cpu']})")
+    return dict(size=size, b=b, fp32={k: (f32[k], c32[k]) for k in TRAIN_RTOL},
+                fp32_stats_max_abs_err=stats, bf16=bf16, cpu_seconds=cpu_s)
+
+
+def _train_times(size: int, b: int, device: str, micro_steps: int, repeats: int,
+                 card: str) -> dict:
+    """ms per micro-step and per optimizer step (accumulation 2), train
+    frames/s, TFLOP/s (3x the forward's convolutions) and peak memory of
+    the 3class_advanced step at b x size^2, in fp32, bf16 and bf16 with
+    remat. Two optimizer steps warm up (AdamW allocates its state at the
+    first), then `repeats` windows of `micro_steps` micro-steps each, CUDA
+    events around each window (the host clock on the CPU): the median
+    window, and the fastest and slowest beside it. The host's own time to
+    queue one micro-step (from a synchronized start to the step's return,
+    the median of `micro_steps`) says how far the host paces the card. The
+    peak is what the step allocates above what was live before it. Then a
+    profile of one fp32 and one bf16 optimizer step (its two micro-steps):
+    the device's busy time."""
+    from unet_tpu_torch.train.trainer import create_train_state, make_train_step, upload
+
+    loss, optim = _advanced_recipe()
+    images, labels = _train_batch(b, size, seed=91)
+    gflop = _conv_gflop(seeded_train_model().eval(), (size, size))
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    out = {}
+    for name, dt, remat in (("fp32", "float32", False), ("bf16", "bfloat16", False),
+                            ("bf16_remat", "bfloat16", True)):
+        if cuda:   # the peak above what the script held before: the step's own
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        state = create_train_state(seeded_train_model(dtype=dt, remat=remat), optim, device)
+        step = make_train_step(loss)
+        x, y = upload(images, labels, device)
+        for _ in range(2 * optim.accum_steps):
+            state, _ = step(state, x, y)
+        windows = []
+        for _ in range(repeats):
+            sync()
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            t = time.perf_counter()
+            for _ in range(micro_steps):
+                state, metrics = step(state, x, y)
+            if cuda:
+                end.record()
+                torch.cuda.synchronize()
+                windows.append(start.elapsed_time(end) / micro_steps)
+            else:
+                windows.append((time.perf_counter() - t) * 1e3 / micro_steps)
+        queue = []
+        for _ in range(micro_steps):
+            sync()
+            t = time.perf_counter()
+            state, _ = step(state, x, y)
+            queue.append((time.perf_counter() - t) * 1e3)
+        sync()
+        if not np.isfinite(float(metrics["loss"])):
+            raise AssertionError(f"train step {name}: loss {float(metrics['loss'])}")
+        ms, host_ms = float(np.median(windows)), float(np.median(queue))
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30 if cuda else None
+        out[name] = dict(ms_per_micro_step=ms, ms_windows=windows,
+                         ms_per_optimizer_step=ms * optim.accum_steps,
+                         frames_per_s=b / ms * 1e3, tflops=3 * gflop * b / ms,   # GFLOP/ms
+                         host_queue_ms=host_ms, peak_gib=peak, loss=float(metrics["loss"]))
+        _log(f"train step {name} (NestedUNet 3-class DS, {size}^2, b={b}, accumulation 2): "
+             f"{ms:.3f} ms/micro-step (median of {repeats} windows of {micro_steps}: "
+             f"{min(windows):.3f}-{max(windows):.3f}), {ms * optim.accum_steps:.3f} "
+             f"ms/optimizer step, {b / ms * 1e3:.2f} train frames/s, "
+             f"{3 * gflop * b / ms:.2f} TFLOP/s (3 x {gflop:.2f} GFLOP a frame); the host "
+             f"queues a micro-step in {host_ms:.3f} ms; peak "
+             f"{'not measured' if peak is None else f'{peak:.3f} GiB'} [{card}]")
+        del state, step, x, y
+    out["gflop_per_frame_forward"] = gflop
+    # profiles after every timing: a profiled step slowed the steps timed
+    # after it
+    for name, dt in (("fp32", "float32"), ("bf16", "bfloat16")):
+        if not cuda:
+            break
+        state = create_train_state(seeded_train_model(dtype=dt), optim, device)
+        step = make_train_step(loss)
+        x, y = upload(images, labels, device)
+        for _ in range(2 * optim.accum_steps):
+            step(state, x, y)
+        out[name]["profile"] = _profile_step(
+            lambda im: [step(state, im, y) for _ in range(optim.accum_steps)], x,
+            out[name]["ms_per_optimizer_step"], f"train optimizer step {name}, b={b}")
+        del state, step, x, y
+    return out
+
+
+def _cli(argv) -> int:
+    from unet_tpu_torch.cli import main as cli
+
+    t = time.time()
+    rc = cli.main([str(a) for a in argv])
+    _log(f"  cli {' '.join(str(a) for a in argv[:3])} ...: exit {rc}, {time.time() - t:.1f} s")
+    return rc
+
+
+def phase_train(device="cuda", size=512, b=8, b_check=2, micro_steps=8, repeats=3,
+                split=(40, 8, 448, 800), image_size=None, cli_batch=4, overfit=True,
+                card="") -> dict:
+    """Training on the card (phase 9): `_train_check` (card against CPU at
+    b_check x size^2), `_train_times` (b x size^2), then the CLI end to end
+    over a labelled split of `train_scenes` written as .png (n_train, n_val,
+    H, W = `split`): `train --recipe 3class_advanced --epochs 2` (best,
+    last, their sidecars, training_history.json), `evaluate --model
+    best.pth` in the dtype it trained in (the loop's logged mIoU for that
+    epoch within 1e-3; metrics.json, confusion_matrix.csv), `infer --model
+    best.pth --preset two_stage` (`engine_run`: 2 B1 launches a batch on the
+    card, events.csv against the step), and `train --recipe overfit_test
+    --image-size 32` (exit 0: the recipe's own mIoU > 0.98 gate).
+    `image_size` sets every run's --image-size (None: 3class_advanced's
+    own 512, evaluate's 512, overfit_test at 32). A train step launches no
+    hand-written kernel: the counts stay 0 over the steps. Returns the
+    record."""
+    import tempfile
+
+    rec = {"check": _train_check(size, b_check, device)}
+    _zero_counts()
+    rec["times"] = _train_times(size, b, device, micro_steps, repeats, card)
+    counts = _read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"train steps launched hand-written kernels: {counts}")
+
+    n_train, n_val, H, W = split
+    isz = ["--image-size", image_size] if image_size else []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        tmp = Path(tmp)
+        root = write_split(tmp / "data", n_train, n_val, H, W, seed=300)
+        out = tmp / "run"
+        if _cli(["train", "--recipe", "3class_advanced", "--epochs", 2, "--data-root", root,
+                 "--output", out, "--batch", cli_batch, "--device", device] + isz) != 0:
+            raise AssertionError("cli train --recipe 3class_advanced failed")
+        files = sorted(p.name for p in out.iterdir())
+        want = {"best.pth", "best.meta.json", "last.pth", "last.meta.json",
+                "training_history.json"}
+        if not want <= set(files):
+            raise AssertionError(f"cli train wrote {files}, not {sorted(want)}")
+        meta = json.loads((out / "best.meta.json").read_text())
+        hist = json.loads((out / "training_history.json").read_text())["history"]
+        logged = hist["miou"][meta["epoch"]]
+        ev = tmp / "eval"
+        if _cli(["evaluate", "--model", out / "best.pth", "--dtype", meta["config"]["dtype"],
+                 "--data-root", root, "--split", "val", "--image-size",
+                 image_size or meta["config"]["image_size"], "--batch", 8, "--output", ev,
+                 "--device", device]) != 0:
+            raise AssertionError("cli evaluate failed")
+        metrics = json.loads((ev / "metrics.json").read_text())
+        if not (ev / "confusion_matrix.csv").is_file():
+            raise AssertionError("cli evaluate wrote no confusion_matrix.csv")
+        if abs(metrics["miou"] - logged) > 1e-3:
+            raise AssertionError(f"cli evaluate mIoU {metrics['miou']} against the loop's "
+                                 f"{logged} at epoch {meta['epoch']}")
+        _log(f"cli train 3class_advanced: mIoU by epoch {hist['miou']}, loss {hist['loss']}; "
+             f"best epoch {meta['epoch']} ({meta['config']}); cli evaluate mIoU "
+             f"{metrics['miou']:.6f} vs logged {logged:.6f}")
+        infer_counts, infer = engine_run("two_stage_bf16", str(tmp / "data" / "val" / "images"),
+                                         str(out / "best.pth"), ["--preset", "two_stage"],
+                                         tmp / "infer", device)
+        rec["cli"] = dict(history=hist, best=meta, evaluate=metrics, logged_miou=logged,
+                          files=files, infer=infer, infer_launches_per_batch=infer_counts)
+        if overfit:
+            # at 32^2: at the recipe's 128^2 the gate misses about one run
+            # in ten, in the JAX package as in the port: Adam at a constant
+            # 1e-3 bumps the loss now and then, and a bump in the last
+            # steps leaves the eval's running statistics behind
+            # (tests/torch_overfit_spread.py, ROADMAP C7)
+            rc = _cli(["train", "--recipe", "overfit_test", "--data-root", root, "--output",
+                       tmp / "overfit", "--image-size", image_size or 32, "--device", device])
+            if rc != 0:
+                raise AssertionError("cli train --recipe overfit_test: the mIoU > 0.98 gate "
+                                     "failed")
+            rec["cli"]["overfit_rc"] = rc
+    return rec
+
+
+def calibrated_model(arch: str, frames: torch.Tensor, cfg, device: str = "cuda") -> nn.Module:
+    """`seeded_model(arch)` whose BN running statistics come from its own
+    activations: one train-mode pass (the port's train-mode BatchNorm,
+    `momentum=None`: the batch's mean and biased variance) over the model
+    input of `frames`. Its logits stay near order 1. Eval mode, on `device`."""
+    from unet_tpu_torch.models.blocks import fp32_convs
+    from unet_tpu_torch.pipeline import stages
+
+    model = seeded_model(arch).to(device)
+    for m in model.modules():
+        if isinstance(m, nn.BatchNorm2d):
+            m.reset_running_stats()
+            m.momentum = None
+    x = stages.model_input(stages.preprocess_frames(frames, cfg), cfg).permute(0, 3, 1, 2)
+    with torch.no_grad(), fp32_convs():
+        model.train()(x.contiguous())
+    return model.eval()
 
 
 def main() -> int:
@@ -2468,6 +2864,10 @@ def main() -> int:
     config_counts, config_runs = phase_config_runs(H, W)
     engine_counts.update(config_counts)
 
+    # -- training: the train step card against CPU, its times, cli train/evaluate
+    train = phase_train(card=card)
+    engine_counts["engine_train_best_two_stage"] = train["cli"]["infer_launches_per_batch"]
+
     # the mma.sync kernel has no main-path launch (conv0_0.conv1 takes the c3
     # kernel): its entry holds its time forced at that site, the c3 kernel's
     # yardstick
@@ -2523,6 +2923,7 @@ def main() -> int:
         "presets_b8": pre_timings, "preset_checks": pre_checks,
         "engine": engine, "inspect_engine": gate_engine, "config_runs": config_runs,
         "models_b8": mod_timings, "model_checks": mod_checks, "device_trace": trace,
+        "train": train,
         "card": card, "seconds": round(time.time() - t_start, 1)}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -15,16 +15,7 @@ from unet_tpu.pipeline import presets as jpresets
 from unet_tpu_torch.core import config
 from unet_tpu_torch.core.profiling import StageTimer, device_trace
 from unet_tpu_torch.pipeline import presets
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """One intra-op CPU thread while this module runs: the quick lane runs
-    six workers on the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("name", sorted(presets.PRESETS))

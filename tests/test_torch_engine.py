@@ -28,19 +28,9 @@ from unet_tpu.pipeline import presets as jpresets
 from unet_tpu_torch.inspect import EventConfig
 from unet_tpu_torch.io.video import ImageDirReader, read_bmp
 from unet_tpu_torch.pipeline import EngineConfig, InferenceEngine, presets
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 H, W = 128, 130      # 130 * 3 = 390 bytes a row: padded to 392 in the .bmp
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """One intra-op CPU thread while this module runs: the engine's step
-    runs beside its host threads, and on a loaded CPU a step of many small
-    ops spends its time at the thread pool's barriers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 class _JColourClassModel:

@@ -12,16 +12,7 @@ import torch
 from tests.conftest import synthetic_cable_frame
 from unet_tpu.ops import frames as jframes
 from unet_tpu_torch.ops import frames
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """One intra-op CPU thread while this module runs: the quick lane runs
-    six workers on the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _batch():

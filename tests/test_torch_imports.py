@@ -29,7 +29,9 @@ def test_every_module_imports_without_jax():
               "inspect.detectors", "pipeline.visualize", "pipeline.engine", "serve.service",
               "serve.inspect_tool", "cli.main", "core.config", "core.profiling",
               "models.simple_unet", "models.resnet", "models.mobilenet", "models.shufflenet",
-              "models.unetpp_lightweight"):
+              "models.unetpp_lightweight", "models.losses", "ops.seg_metrics", "data.augment",
+              "data.dataset", "data.loader", "train.monitor", "train.trainer",
+              "core.checkpoint", "train.loop", "train.recipes", "tools.evaluate"):
         assert f"unet_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -22,18 +22,9 @@ from unet_tpu.pipeline import InferenceEngine as JInferenceEngine
 from unet_tpu.pipeline import presets as jpresets
 from unet_tpu_torch.cli.main import main
 from unet_tpu_torch.pipeline import EngineConfig, InferenceEngine, presets
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 H, W = 96, 128
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """One intra-op CPU thread while this module runs (the engine's host
-    threads run beside the step)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 class _JColourDefectModel:

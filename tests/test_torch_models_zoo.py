@@ -28,18 +28,11 @@ from unet_tpu_torch.models.mobilenet import (LARGE_LAST, LARGE_SPEC, MobileNetV3
                                              SMALL_LAST, SMALL_SPEC)
 from unet_tpu_torch.models.shufflenet import channel_shuffle
 from unet_tpu_torch.ops.image import resize_bilinear_align_corners
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 SIZE = 64
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """One intra-op CPU thread while this module runs: the quick lane runs
-    six workers on the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 # logits' side at a 64^2 input: the encoder's first stage
 OUT_SIDE = {"nested_unet_resnet50": 16, "simple_unet": 64, "lightweight:custom": 64,
             "lightweight:mobilenet_v3_large": 32}

@@ -17,6 +17,7 @@ from unet_tpu.pipeline import stages as jstages
 from unet_tpu_torch.models import NestedUNet
 from unet_tpu_torch.models.convert import state_dict_from_flax
 from unet_tpu_torch.pipeline import presets, stages
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 H, W = 224, 400
 
@@ -29,6 +30,36 @@ class _JColourClassModel:
         tape = (x[..., 0] > 0.6) & (x[..., 2] < 0.4) & ~cable
         cls = jnp.where(tape, 2, jnp.where(cable, 1, 0))
         return jax.nn.one_hot(cls, 3) * 10.0
+
+
+def enhanced_colour_model_matches_jax(seed, denoise):
+    """The body of test_enhanced_colour_model_matches_jax, whose cases
+    tests/test_torch_enhanced_step.py and test_torch_enhanced_denoisers.py
+    split between them. The enhanced step at normalize_wh (200, 112):
+    scenes rotated clockwise, so that the preset's counter-clockwise turn
+    gives back a vertical cable inside ROI x 200-600 of 800. Flat
+    backgrounds with noise 2 keep CLAHE from turning the background into
+    edges. The enhanced frames differ from the JAX package's in the last
+    float bits (exp, pow), so the class maps are held at agreement >= 0.999;
+    on these scenes they are equal."""
+    H2, W2 = 112, 200
+    frames = enhanced_scenes(2, H2, W2, seed=seed, patch=14)
+    assert frames.shape == (2, W2, H2, 3)
+    jcfg = jpresets.enhanced(denoise=denoise).replace_in(
+        "preprocess", normalize_wh=(W2, H2), model_size=(64, 64))
+    cfg = presets.enhanced(denoise=denoise).replace_in(
+        "preprocess", normalize_wh=(W2, H2), model_size=(64, 64))
+    want = jstages.build_step(_JColourClassModel(), jcfg)({}, jnp.asarray(frames))
+    got = stages.build_step(ColourClassModel(), cfg, device="cpu")(frames)
+    assert got.class_map.shape == (2, H2, W2)
+    agree = float((got.class_map.numpy() == np.asarray(want.class_map)).mean())
+    assert agree >= 0.999, agree
+    assert got.cable_px.min() > 0 and got.tape_px.min() > 0
+    if denoise == "nlm":     # the other denoisers leave no burr on these scenes
+        assert got.burr_px.sum() > 0, "no burr candidate survived: stage 2 untested"
+        for name in ("cable_px", "tape_px", "burr_px"):
+            np.testing.assert_allclose(getattr(got, name).numpy(),
+                                       np.asarray(getattr(want, name)), atol=2)
 
 
 class _FixedLogits(torch.nn.Module):
@@ -123,36 +154,6 @@ def test_two_stage_nested_unet_shared_weights():
     _assert_same(got, want)
 
 
-@pytest.mark.parametrize("seed,denoise", [(0, "nlm"), (2, "nlm"), (2, "bilateral"),
-                                          (0, "none")])
-def test_enhanced_colour_model_matches_jax(seed, denoise):
-    """The enhanced step at normalize_wh (200, 112): scenes rotated
-    clockwise, so that the preset's counter-clockwise turn gives back a
-    vertical cable inside ROI x 200-600 of 800. Flat backgrounds with noise 2
-    keep CLAHE from turning the background into edges. The enhanced frames
-    differ from the JAX package's in the last float bits (exp, pow), so the
-    class maps are held at agreement >= 0.999; on these scenes they are
-    equal."""
-    H2, W2 = 112, 200
-    frames = enhanced_scenes(2, H2, W2, seed=seed, patch=14)
-    assert frames.shape == (2, W2, H2, 3)
-    jcfg = jpresets.enhanced(denoise=denoise).replace_in(
-        "preprocess", normalize_wh=(W2, H2), model_size=(64, 64))
-    cfg = presets.enhanced(denoise=denoise).replace_in(
-        "preprocess", normalize_wh=(W2, H2), model_size=(64, 64))
-    want = jstages.build_step(_JColourClassModel(), jcfg)({}, jnp.asarray(frames))
-    got = stages.build_step(ColourClassModel(), cfg, device="cpu")(frames)
-    assert got.class_map.shape == (2, H2, W2)
-    agree = float((got.class_map.numpy() == np.asarray(want.class_map)).mean())
-    assert agree >= 0.999, agree
-    assert got.cable_px.min() > 0 and got.tape_px.min() > 0
-    if denoise == "nlm":     # the other denoisers leave no burr on these scenes
-        assert got.burr_px.sum() > 0, "no burr candidate survived: stage 2 untested"
-        for name in ("cable_px", "tape_px", "burr_px"):
-            np.testing.assert_allclose(getattr(got, name).numpy(),
-                                       np.asarray(getattr(want, name)), atol=2)
-
-
 def test_unported_branches_raise():
     """Every preset builds; what raises is a denoiser the JAX package does
     not have (A9). The ResNet50 encoder (A13) builds, and its step too; the
@@ -242,46 +243,6 @@ def test_forward_logits_from_threads_restores_the_flags():
         b = torch.backends
         (b.cudnn.conv.fp32_precision, b.cudnn.rnn.fp32_precision, b.cudnn.fp32_precision,
          b.cuda.matmul.fp32_precision, b.fp32_precision) = saved
-
-
-def test_chip_smoke_low_precision_phases_run_on_the_cpu(monkeypatch):
-    """chip_smoke.py's bf16/int8 phase and qconv phase, end to end on the
-    CPU at a small size (plain versions, so no kernel launches and zero
-    counts; the card's timers replaced by host clocks): the rehearsal of the
-    chip run's new code."""
-    import chip_smoke as cs
-
-    def host_ms(fn, reps=1, warmup=0):
-        t = time.perf_counter()
-        fn()
-        return (time.perf_counter() - t) * 1e3
-
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
-    monkeypatch.setattr(cs, "_time_ms", host_ms)
-    monkeypatch.setattr(cs, "_time_step", lambda step, frames, reps=1: host_ms(lambda: step(frames)))
-    monkeypatch.setattr(cs, "_profile_step", lambda *a, **k: None)
-    monkeypatch.setattr(cs, "_device_ops", lambda fn: 0)
-    zero = {"cc_propagate": 0, "cc_propagate_cluster": 0, "cc_propagate_global": 0,
-            "cc_propagate_cluster8": 0, "cc_propagate_cluster16": 0,
-            "nlm": 0, "qconv": 0, "qconv_wgmma": 0, "qconv_sync": 0, "qconv_c3": 0}
-    expect = {"two_stage_bf16": zero, "two_stage_int8": zero}
-    counts = {}
-    cfg = presets.two_stage().replace_in("preprocess", model_size=(32, 32))
-    timings, q_rec, checks, ups = cs.phase_low_precision(cfg, expect, counts, 1.0, "cpu", 112,
-                                                         200, device="cpu")
-    assert set(timings) == set(counts) == set(ups) == {"two_stage_bf16", "two_stage_int8"}
-    for path, up in ups.items():
-        assert up["calls_per_forward"] == 4
-        assert [c["shape"][1] for c in up["per_call"]] == [2, 4, 8, 16]
-        assert up["sum_ms"] == sum(c["ms"] for c in up["per_call"]) > 0
-    assert checks["int8_taps_bit_identical_card_vs_cpu"] == 19
-    assert len(q_rec) == 18
-    per_route, max_err = cs.phase_qconv(q_rec, device="cpu")
-    assert max_err == 0
-    assert {r: len(v) for r, v in per_route.items()} == {"wgmma": 17, "c3": 1, "sync": 0}
-    assert per_route["c3"][0]["site"] == "two_stage_int8/conv0_0.conv1"
-    assert per_route["c3"][0]["f32_epilogue_ms"] > 0
-    assert all(p["library_ms"] > 0 and p["sync_ms"] > 0 for v in per_route.values() for p in v)
 
 
 def test_build_step_cuda_without_card_raises():

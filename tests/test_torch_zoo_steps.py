@@ -21,18 +21,9 @@ from unet_tpu.pipeline import presets as jpresets
 from unet_tpu.pipeline import stages as jstages
 from unet_tpu_torch.cli.main import _build_model, load_model, main
 from unet_tpu_torch.pipeline import presets, stages
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 H, W, SIZE = 96, 160, 64
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """One intra-op CPU thread while this module runs: the quick lane runs
-    six workers on the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _spread(arch, variables, frames, jcfg):

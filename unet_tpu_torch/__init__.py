@@ -16,7 +16,10 @@ several streams through one step, and `inspect` holds the host decisions.
 `high_res_roi` and `debug` run as well. Users run it from the command
 line, `python -m unet_tpu_torch.cli infer|serve|inspect`, through
 `pipeline.InferenceEngine` (video or image-dir sources, event files,
-overlays).
+overlays). `cli train` runs the training recipes (`train/`: the losses of
+`models.losses`, the host `data/` loaders, the optax trainer as
+`torch.optim`, the epoch loop with `core.checkpoint`) and `cli evaluate`
+scores a labelled split (`tools.evaluate`, `ops.seg_metrics`).
 
 Layout conventions are the JAX package's at every public function, so the
 parity tests compare like with like:

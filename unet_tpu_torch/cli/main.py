@@ -5,15 +5,19 @@
             included (--config, core.config)
   serve     N videos/cameras through one batched step (serve.service)
   inspect   YAML-configured window inspection (serve.inspect_tool)
+  train     the training recipes (train.recipes; tools/train*.py family)
+  evaluate  dataset mIoU, confusion CSV and metrics JSON (tools.evaluate)
 
 Every model of the JAX package runs (--arch): nested_unet,
 nested_unet_resnet50, simple_unet and lightweight[:encoder] with the
 custom, resnet18, resnet34, mobilenet_v3_small (the default),
 mobilenet_v3_large or shufflenet_v2_x1_0 encoder; a reference .pth of the
-first three families loads with its family read from its keys.
+first three families loads with its family read from its keys, and a
+checkpoint of `train` (`best.pth`, `last.pth`) with its family read from
+its sidecar.
 
-`train`, `export`, `evaluate`, `tools` and `bench` are not ported yet; each
-names the ROADMAP item that ports it and exits non-zero.
+`tools`, `export` and `bench` are not ported yet; each names the ROADMAP
+item that ports it and exits non-zero.
 
 Every command runs on the card (`--device cuda`, the default) unless asked
 for the CPU. Run `python -m unet_tpu_torch.cli <cmd> --help`.
@@ -32,9 +36,7 @@ import torch
 import torch.nn as nn
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_NOT_PORTED = {"train": "ROADMAP A14 (training)",
-               "evaluate": "ROADMAP A14 (dataset evaluation)",
-               "tools": "ROADMAP A14 (tools/)",
+_NOT_PORTED = {"tools": "ROADMAP A14b (tools/)",
                "export": "ROADMAP A15 (export)",
                "bench": "ROADMAP A5 (the port bench)"}
 N_CALIB = 16
@@ -85,20 +87,27 @@ def _seed_weights(model: nn.Module, seed: int = 0) -> nn.Module:
 def load_model(model_path: Optional[str], arch: str, dtype_str: str, fallback_classes: int):
     """(model in eval mode, num_classes, arch) from a reference .pth (its
     family -- nested_unet, nested_unet_resnet50 or simple_unet -- and class
-    count read from its keys, loaded strictly, whatever `arch` says), or,
-    without a path, the model of `arch` with seeded random weights (smoke
-    mode)."""
-    from unet_tpu_torch.models import convert
+    count read from its keys) or a checkpoint of `train` (its family from
+    the `.meta.json` sidecar beside it, every family), loaded strictly,
+    whatever `arch` says; or, without a path, the model of `arch` with
+    seeded random weights (smoke mode)."""
+    from unet_tpu_torch.core.checkpoint import read_meta
+    from unet_tpu_torch.models import LightweightNestedUNet, convert
 
     if model_path:
         if Path(model_path).is_dir():
             raise SystemExit(f"--model {model_path}: orbax checkpoint directories are "
                              f"ROADMAP A15; pass a reference .pth")
         sd = convert.load_pth(model_path)
-        kind = convert.detect_model_kind(sd)
+        kind = read_meta(model_path).get("config", {}).get("arch") or \
+            convert.detect_model_kind(sd)
         num_classes = convert.infer_num_classes(sd)
-        model = _build_model(num_classes, kind, dtype_str,
-                             deep_supervision="ds1_3.weight" in sd)
+        heads = "ds1_3.weight" in sd
+        if kind.startswith("lightweight") and heads:   # trained with its heads
+            model = LightweightNestedUNet(num_classes, kind.split(":", 1)[1],
+                                          deep_supervision=True, dtype=_DTYPES[dtype_str])
+        else:
+            model = _build_model(num_classes, kind, dtype_str, deep_supervision=heads)
         model.load_state_dict(sd, strict=True)
         return model.eval(), num_classes, kind
     print("warning: no --model given; using random weights (smoke mode)")
@@ -256,6 +265,38 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_train(args) -> int:
+    """A training recipe (train.recipes) on --device."""
+    from unet_tpu_torch.train.recipes import run_recipe
+
+    if args.n_devices is not None and args.n_devices > 1:
+        raise SystemExit(f"--n-devices {args.n_devices}: training on several devices is not "
+                         f"ported to unet_tpu_torch yet, ROADMAP A15")
+    return run_recipe(args)
+
+
+def cmd_evaluate(args) -> int:
+    """Dataset mIoU/precision/recall + confusion CSV/JSON
+    (reference tools/evaluate.py:22-114) on --device."""
+    import os
+
+    from unet_tpu_torch.data.dataset import SegmentationDataset
+    from unet_tpu_torch.tools import evaluate_dataset
+
+    model, num_classes, _ = load_model(args.model, args.arch, args.dtype, args.num_classes)
+    split_dir = os.path.join(args.data_root, args.split)
+    if not os.path.isdir(split_dir) and args.split == "test":
+        split_dir = os.path.join(args.data_root, "val")
+        print("note: no test split; evaluating on val")
+    ds = SegmentationDataset(os.path.join(split_dir, "images"), os.path.join(split_dir, "masks"),
+                             augment=False, target_size=(args.image_size, args.image_size))
+    result = evaluate_dataset(model, ds, num_classes, batch_size=args.batch,
+                              output_dir=args.output, device=args.device)
+    result.pop("confusion", None)
+    print(json.dumps(result, indent=2))
+    return 0
+
+
 def cmd_not_ported(args) -> int:
     raise SystemExit(f"{args.cmd}: not ported to unet_tpu_torch yet, "
                      f"{_NOT_PORTED[args.cmd]}; the JAX package has it "
@@ -332,6 +373,44 @@ def build_parser() -> argparse.ArgumentParser:
                     help="burr pixel count that logs an events.jsonl entry")
     device_flag(pm)
     pm.set_defaults(fn=cmd_serve)
+
+    pt = sub.add_parser("train", help="training recipes (tools/train*.py family)")
+    pt.add_argument("--recipe", default="3class_advanced")
+    pt.add_argument("--data-root", required=True)
+    pt.add_argument("--output", default="checkpoints")
+    pt.add_argument("--epochs", type=int, default=None)
+    pt.add_argument("--batch", type=int, default=8)
+    pt.add_argument("--image-size", type=int, default=None)
+    pt.add_argument("--resume", default=None,
+                    help="checkpoint dir of an earlier run; its last.pth goes on")
+    pt.add_argument("--seed", type=int, default=42)
+    pt.add_argument("--n-devices", type=int, default=None,
+                    help="one device only; more is ROADMAP A15")
+    pt.add_argument("--encoder", default="mobilenet_v3_small")
+    pt.add_argument("--train-dtype", default="bfloat16", choices=list(_DTYPES),
+                    help="compute dtype for training (params stay float32); "
+                         "bfloat16 is the reference's AMP analogue")
+    pt.add_argument("--remat", action="store_true",
+                    help="recompute ConvBlocks in the backward pass (less activation "
+                         "memory for more compute)")
+    device_flag(pt)
+    pt.set_defaults(fn=cmd_train)
+
+    pv = sub.add_parser("evaluate", help="dataset mIoU + confusion CSV/JSON")
+    pv.add_argument("--model", default=None,
+                    help="reference .pth or a checkpoint of train (best.pth, last.pth)")
+    pv.add_argument("--arch", default="nested_unet", help=_ARCH_HELP)
+    pv.add_argument("--dtype", default="float32", choices=list(_DTYPES))
+    pv.add_argument("--data-root", required=True,
+                    help="root with <split>/images + <split>/masks")
+    pv.add_argument("--split", default="test")
+    pv.add_argument("--num-classes", type=int, default=3)
+    pv.add_argument("--image-size", type=int, default=512)
+    pv.add_argument("--batch", type=int, default=8)
+    pv.add_argument("--output", default=None,
+                    help="dir for confusion_matrix.csv + metrics.json")
+    device_flag(pv)
+    pv.set_defaults(fn=cmd_evaluate)
 
     for name, item in _NOT_PORTED.items():
         sub.add_parser(name, help=f"not ported yet: {item}").set_defaults(fn=cmd_not_ported)

@@ -1,7 +1,8 @@
 """Building blocks of the UNet family (counterpart of
 unet_tpu/models/blocks.py), NCHW; `ComputeDtype`, the compute type of every
-model of the port; and `fp32_convs`, the cuDNN precision pin of the float32
-forwards."""
+model of the port; `BatchNorm2d`, whose train mode is flax's; `remat`, the
+recomputed block of `NestedUNet(remat=True)`; and `fp32_convs`, the cuDNN
+precision pin of the float32 forwards and train steps."""
 from __future__ import annotations
 
 import contextlib
@@ -16,20 +17,97 @@ from torch.func import functional_call
 class ComputeDtype(nn.Module):
     """A model whose `dtype` is its compute type, as flax's `dtype` is: the
     parameters stay float32, and a forward in another type runs on copies of
-    them (and of the BN statistics) cast to it, input included. Subclasses
-    write `compute(x)`; `forward` casts and calls it."""
+    them cast to it, input included. The casts are part of the autograd
+    graph, so that gradients reach the float32 parameters. In eval mode the
+    BN statistics are cast too; in train mode BatchNorm's parameters and
+    statistics stay float32, as flax keeps them (its statistics reduce in
+    float32), and the statistics' updates land in the model's own buffers.
+    Subclasses write `compute(x)`; `forward` casts and calls it."""
 
     dtype: torch.dtype = torch.float32
 
     def forward(self, x: torch.Tensor):
         if next(self.parameters()).dtype != self.dtype:   # not yet inside the cast call
-            state = {k: v.to(self.dtype) if v.is_floating_point() else v
-                     for k, v in self.state_dict().items()}
-            return functional_call(self, state, (x.to(self.dtype),))
+            return functional_call(self, self._cast_state(), (x.to(self.dtype),))
         return self.compute(x)
+
+    def _cast_state(self) -> dict:
+        keep = set()
+        if self.training:
+            keep = {f"{name}.{k}" for name, m in self.named_modules()
+                    if isinstance(m, nn.BatchNorm2d) for k in ("weight", "bias")}
+        state = {k: p if k in keep else p.to(self.dtype) for k, p in self.named_parameters()}
+        for k, b in self.named_buffers():
+            state[k] = b.to(self.dtype) if b.is_floating_point() and not self.training else b
+        return state
 
     def compute(self, x: torch.Tensor):
         raise NotImplementedError
+
+
+_recompute = threading.local()
+
+
+def _recomputing() -> bool:
+    return getattr(_recompute, "active", False)
+
+
+@contextlib.contextmanager
+def _no_stat_updates():
+    _recompute.active = True
+    try:
+        yield
+    finally:
+        _recompute.active = False
+
+
+def remat(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """`block(x)` with its activations recomputed in the backward pass
+    (`torch.utils.checkpoint`, non-reentrant), the counterpart of flax's
+    `nn.remat(ConvBlock)` (unet_tpu/models/unetpp.py:45-56). The recompute
+    runs BatchNorm in train mode again; it leaves the running statistics as
+    the first pass left them, as the JAX package's functional recompute
+    does. The block's parameters are those of this forward (inside
+    `ComputeDtype`'s cast call, the cast copies) and are passed to the
+    recompute, which runs after the cast call has returned; train mode
+    reads no BN statistic, which the first pass updates in place."""
+    from torch.utils.checkpoint import checkpoint
+
+    state = dict(block.named_parameters())
+    names = list(state)
+
+    def run(t, *tensors):
+        return functional_call(block, dict(zip(names, tensors)), (t,))
+
+    return checkpoint(run, x, *state.values(), use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), _no_stat_updates()))
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d in eval mode. In train mode flax's BatchNorm
+    (flax.linen.BatchNorm with use_running_average=False): the batch's
+    mean and biased variance, reduced in float32 whatever the input's type,
+    normalise the input in float32, and the running statistics move to
+    them at `momentum` (torch's convention: 0.1 is flax's 0.9). nn.BatchNorm2d
+    would fold the unbiased variance into `running_var`. `momentum=None`
+    keeps torch's cumulative average (of the biased variance). The output
+    has the input's type."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        xf = x.float()
+        if self.track_running_stats and not _recomputing():
+            with torch.no_grad():
+                var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
+                self.num_batches_tracked.add_(1)
+                m = (1.0 / float(self.num_batches_tracked) if self.momentum is None
+                     else self.momentum)
+                self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1 - m).add_(var, alpha=m)
+        w = None if self.weight is None else self.weight.float()
+        b = None if self.bias is None else self.bias.float()
+        return F.batch_norm(xf, None, None, w, b, True, 0.0, self.eps).to(x.dtype)
 
 
 class ConvBlock(nn.Module):
@@ -39,9 +117,9 @@ class ConvBlock(nn.Module):
     def __init__(self, cin: int, cout: int):
         super().__init__()
         self.conv1 = nn.Conv2d(cin, cout, 3, padding=1)
-        self.bn1 = nn.BatchNorm2d(cout, eps=1e-5)
+        self.bn1 = BatchNorm2d(cout, eps=1e-5)
         self.conv2 = nn.Conv2d(cout, cout, 3, padding=1)
-        self.bn2 = nn.BatchNorm2d(cout, eps=1e-5)
+        self.bn2 = BatchNorm2d(cout, eps=1e-5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.bn1(self.conv1(x)))

@@ -18,6 +18,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from unet_tpu_torch.models.blocks import BatchNorm2d
+
 
 def _make_divisible(v: float, divisor: int = 8) -> int:
     new_v = max(divisor, int(v + divisor / 2) // divisor * divisor)
@@ -75,7 +77,7 @@ class _CNA(nn.Sequential):
                  activation: str = "hs"):
         layers = [nn.Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2, groups=groups,
                             bias=False),
-                  nn.BatchNorm2d(cout, eps=1e-3, momentum=0.01)]
+                  BatchNorm2d(cout, eps=1e-3, momentum=0.01)]
         if activation != "none":
             layers.append(_ACTS[activation]())
         super().__init__(*layers)

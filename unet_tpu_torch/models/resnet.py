@@ -14,9 +14,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from unet_tpu_torch.models.blocks import BatchNorm2d
+
 
 def _projection(cin: int, cout: int, stride: int) -> nn.Sequential:
-    return nn.Sequential(nn.Conv2d(cin, cout, 1, stride, bias=False), nn.BatchNorm2d(cout))
+    return nn.Sequential(nn.Conv2d(cin, cout, 1, stride, bias=False), BatchNorm2d(cout))
 
 
 class BasicBlock(nn.Module):
@@ -27,9 +29,9 @@ class BasicBlock(nn.Module):
     def __init__(self, cin: int, features: int, stride: int = 1, project: bool = False):
         super().__init__()
         self.conv1 = nn.Conv2d(cin, features, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(features)
+        self.bn1 = BatchNorm2d(features)
         self.conv2 = nn.Conv2d(features, features, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(features)
+        self.bn2 = BatchNorm2d(features)
         self.downsample = _projection(cin, features, stride) if project else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -45,11 +47,11 @@ class Bottleneck(nn.Module):
     def __init__(self, cin: int, width: int, stride: int = 1, project: bool = False):
         super().__init__()
         self.conv1 = nn.Conv2d(cin, width, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(width)
+        self.bn1 = BatchNorm2d(width)
         self.conv2 = nn.Conv2d(width, width, 3, stride, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(width)
+        self.bn2 = BatchNorm2d(width)
         self.conv3 = nn.Conv2d(width, width * 4, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(width * 4)
+        self.bn3 = BatchNorm2d(width * 4)
         self.downsample = _projection(cin, width * 4, stride) if project else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -62,7 +64,7 @@ class Bottleneck(nn.Module):
 def stem() -> nn.Sequential:
     """conv 7x7/2, BN, ReLU, max pool 3x3/2 with padding 1 (torchvision's
     stem), as one Sequential: the reference's `conv0_0` layout."""
-    return nn.Sequential(nn.Conv2d(3, 64, 7, 2, 3, bias=False), nn.BatchNorm2d(64),
+    return nn.Sequential(nn.Conv2d(3, 64, 7, 2, 3, bias=False), BatchNorm2d(64),
                          nn.ReLU(), nn.MaxPool2d(3, 2, 1))
 
 
@@ -96,7 +98,7 @@ class ResNetBasicEncoder(nn.Module):
     def __init__(self, layers: Sequence[int] = (2, 2, 2, 2)):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         l1, l2, l3, l4 = layers
         self.layer1 = stage(BasicBlock, 64, l1, 64, 1, first_project=False)
         self.layer2 = stage(BasicBlock, 64, l2, 128, 2)

@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from unet_tpu_torch.models.blocks import max_pool2
+from unet_tpu_torch.models.blocks import BatchNorm2d, max_pool2
 
 STAGE_REPEATS = (4, 8, 4)
 STAGE_CHANNELS = (116, 232, 464)  # x1.0
@@ -45,13 +45,13 @@ class _Unit(nn.Module):
         half = out_channels // 2
         self.stride = stride
         if stride > 1:
-            self.branch1 = nn.Sequential(_dw(cin, stride), nn.BatchNorm2d(cin),
+            self.branch1 = nn.Sequential(_dw(cin, stride), BatchNorm2d(cin),
                                          nn.Conv2d(cin, half, 1, bias=False),
-                                         nn.BatchNorm2d(half), nn.ReLU())
+                                         BatchNorm2d(half), nn.ReLU())
         self.branch2 = nn.Sequential(
-            nn.Conv2d(cin if stride > 1 else half, half, 1, bias=False), nn.BatchNorm2d(half),
-            nn.ReLU(), _dw(half, stride), nn.BatchNorm2d(half),
-            nn.Conv2d(half, half, 1, bias=False), nn.BatchNorm2d(half), nn.ReLU())
+            nn.Conv2d(cin if stride > 1 else half, half, 1, bias=False), BatchNorm2d(half),
+            nn.ReLU(), _dw(half, stride), BatchNorm2d(half),
+            nn.Conv2d(half, half, 1, bias=False), BatchNorm2d(half), nn.ReLU())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.stride == 1:
@@ -70,7 +70,7 @@ class ShuffleNetV2Encoder(nn.Module):
 
     def __init__(self):
         super().__init__()
-        self.conv1 = nn.Sequential(nn.Conv2d(3, 24, 3, 2, 1, bias=False), nn.BatchNorm2d(24),
+        self.conv1 = nn.Sequential(nn.Conv2d(3, 24, 3, 2, 1, bias=False), BatchNorm2d(24),
                                    nn.ReLU())
         cin = 24
         for s, (reps, ch) in enumerate(zip(STAGE_REPEATS, STAGE_CHANNELS)):

@@ -25,7 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from unet_tpu_torch.models.blocks import ComputeDtype, ConvBlock, max_pool2
+from unet_tpu_torch.models.blocks import ComputeDtype, ConvBlock, max_pool2, remat
 from unet_tpu_torch.models.resnet import resnet50_stages
 
 NB_FILTER = (32, 64, 128, 256, 512)
@@ -44,13 +44,19 @@ class NestedUNet(ComputeDtype):
     (unet_tpu/models/unetpp.py:44; models.blocks.ComputeDtype). The
     BN-folded and int8 forwards (models/fast_forward.py,
     models/quantized.py) read the float32 parameters of the custom-encoder
-    model and compute in `dtype`."""
+    model and compute in `dtype`.
+
+    `remat` recomputes every ConvBlock's activations in the backward pass of
+    a train-mode forward (unet_tpu/models/unetpp.py:45-56; models.blocks.remat),
+    trading recompute for activation memory; the state dict and the results
+    are those of remat off."""
 
     def __init__(self, num_classes: int, input_channels: int = 3,
                  deep_supervision: bool = True, pretrained_encoder: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.deep_supervision = deep_supervision
+        self.remat = remat
         self.pretrained_encoder = pretrained_encoder
         if pretrained_encoder:
             f = RESNET50_CHANNELS
@@ -75,6 +81,11 @@ class NestedUNet(ComputeDtype):
         self.dtype = dtype
 
     def compute(self, x: torch.Tensor) -> Union[torch.Tensor, List[torch.Tensor]]:
+        recompute = self.remat and self.training and torch.is_grad_enabled()
+
+        def block(m, t):
+            return remat(m, t) if recompute else m(t)
+
         def up_to(t, skip):
             if t.shape[2:] == skip.shape[2:]:
                 return t
@@ -87,15 +98,15 @@ class NestedUNet(ComputeDtype):
             x3_0 = self.conv3_0(x2_0)
             x4_0 = self.conv4_0(x3_0)
         else:
-            x0_0 = self.conv0_0(x)
-            x1_0 = self.conv1_0(max_pool2(x0_0))
-            x2_0 = self.conv2_0(max_pool2(x1_0))
-            x3_0 = self.conv3_0(max_pool2(x2_0))
-            x4_0 = self.conv4_0(max_pool2(x3_0))
-        x3_1 = self.conv3_1(torch.cat([x3_0, up_to(x4_0, x3_0)], 1))
-        x2_2 = self.conv2_2(torch.cat([x2_0, up_to(x3_1, x2_0)], 1))
-        x1_3 = self.conv1_3(torch.cat([x1_0, up_to(x2_2, x1_0)], 1))
-        x0_4 = self.conv0_4(torch.cat([x0_0, up_to(x1_3, x0_0)], 1))
+            x0_0 = block(self.conv0_0, x)
+            x1_0 = block(self.conv1_0, max_pool2(x0_0))
+            x2_0 = block(self.conv2_0, max_pool2(x1_0))
+            x3_0 = block(self.conv3_0, max_pool2(x2_0))
+            x4_0 = block(self.conv4_0, max_pool2(x3_0))
+        x3_1 = block(self.conv3_1, torch.cat([x3_0, up_to(x4_0, x3_0)], 1))
+        x2_2 = block(self.conv2_2, torch.cat([x2_0, up_to(x3_1, x2_0)], 1))
+        x1_3 = block(self.conv1_3, torch.cat([x1_0, up_to(x2_2, x1_0)], 1))
+        x0_4 = block(self.conv0_4, torch.cat([x0_0, up_to(x1_3, x0_0)], 1))
         out = self.final(x0_4)
         if self.deep_supervision and self.training:
             rs = lambda t: F.interpolate(t, size=x.shape[2:], mode="bilinear",

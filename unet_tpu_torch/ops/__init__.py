@@ -11,4 +11,5 @@
   cc_kernels  propagate: the CUDA kernel for the CC/hysteresis fixpoint
   nlm_kernels nlm: the CUDA kernel for non-local-means denoising
   qconv_kernels qconv: the CUDA int8 3x3 conv with its requant fused
+  seg_metrics confusion_matrix / metrics_from_confusion / compute_metrics
 """
