@@ -144,6 +144,15 @@ Phases; any failure exits non-zero and prints no result line:
      best.pth --preset two_stage` (2 B1 launches a batch, events.csv
      against the step) and `train --recipe overfit_test --image-size 32`
      (its mIoU > 0.98 gate)
+ 10. export (`phase_export`, after phase 9): `.pt2` programs of the whole
+     step through `export.AotRunner` against the live step on the same
+     frames, class maps and px counts bit for bit and the same launches
+     per batch: two_stage fp32 from `cli export --pipeline two_stage` of a
+     seeded .pth (symbolic batch, b=8 and b=3; B1 2), two_stage int8
+     (qconv 18), enhanced fp32 at a fixed b=8 (B2 3) and production (B1 7,
+     diameters within rtol 1e-5) at 512^2, one two_stage program traced on
+     the CPU and run on the card; `export_model`'s logits within 1e-5; `cli tools
+     render-predictions` on the card
 Then, on the last two lines, the kernels' JSON record and
 {"ok": true, "device": {...}}.
 
@@ -2661,6 +2670,216 @@ def calibrated_model(arch: str, frames: torch.Tensor, cfg, device: str = "cuda")
     return model.eval()
 
 
+def expected_launches() -> dict:
+    """{path: the launches of one batch of the main paths, per kernel,
+    route and cluster size}, as `_read_counts` reads them."""
+    # every B1 launch of the paths takes the cluster route: burr crops and
+    # the wrap path's 256x256 labels on clusters of 8, 448x800 labels of 16
+    def b1(k8, k16=0):
+        return {"cc_propagate": k8 + k16, "cc_propagate_cluster": k8 + k16,
+                "cc_propagate_global": 0, "cc_propagate_cluster8": k8,
+                "cc_propagate_cluster16": k16}
+    # int8: 17 convs on qconv's wgmma route, conv0_0.conv1 (Cin 3) on the c3 kernel
+    q0 = {"qconv": 0, "qconv_wgmma": 0, "qconv_sync": 0, "qconv_c3": 0}
+    return {"two_stage": dict(b1(2), nlm=0, **q0), "enhanced": dict(b1(2), nlm=3, **q0),
+            "two_stage_bf16": dict(b1(2), nlm=0, **q0),
+            "two_stage_int8": dict(b1(2), nlm=0, qconv=18, qconv_wgmma=17, qconv_sync=0,
+                                   qconv_c3=1),
+            # labels of the cable and tape: at the model's 256x256 (wrap),
+            # at 448x800 (three_class_full: 448 < its 512 model input)
+            "wrap_uniformity": dict(b1(2), nlm=0, **q0),
+            "three_class_full": dict(b1(0, 2), nlm=0, **q0),
+            # burr (2 on its crop) + cable and tape labels + defect analysis
+            # (holes, tape, cable count), all at 448x800
+            "production": dict(b1(2, 5), nlm=0, **q0),
+            **{p: dict(b1(*PRESET_B1[p]), nlm=0, **q0) for p in PRESET_PATHS}}
+
+
+def _runner_counts(fn, frames):
+    """`fn(frames)` with every launch count set to 0 just before and read
+    just after: (outputs, counts)."""
+    _zero_counts()
+    out = fn(frames)
+    return out, _read_counts()
+
+
+def _tree_equal(got: dict, want, what: str, fields=("class_map", "cable_px", "tape_px",
+                                                    "burr_px")) -> None:
+    for f in fields:
+        w = getattr(want, f).cpu().numpy()
+        if got[f].dtype != w.dtype or not np.array_equal(got[f], w):
+            raise AssertionError(f"{what}: {f} of the artifact differs from the live step's")
+
+
+def _graph_ops(program) -> dict:
+    """{op: calls} of the custom ops (torch.ops.unet_tpu_torch.*) in an
+    exported program's graph."""
+    ops = {}
+    for node in program.graph.nodes:
+        name = str(node.target)
+        if node.op == "call_function" and name.startswith("unet_tpu_torch."):
+            op = name.split(".")[1]
+            ops[op] = ops.get(op, 0) + 1
+    return ops
+
+
+def phase_export(expect, H=448, W=800, device="cuda", b=8, b_small=3, model_size=None,
+                 card=""):
+    """torch.export of the port (phase 10). Five pipeline artifacts, each
+    loaded by `AotRunner` and run on `device` beside the live
+    `stages.build_step`: class map and px counts equal, diameters within
+    rtol 1e-5 (every integer field equal), the artifact's launches per
+    batch equal to the live step's and to `expect`:
+      two_stage fp32, the seeded 3-class NestedUNet saved as a .pth and
+        exported by `cli export --pipeline two_stage` (its BN-folded fp32
+        forward; symbolic batch, run at b and b_small);
+      two_stage int8 (`calibrate_int8`, the bf16 NestedUNet), enhanced fp32
+        and production (the colour->class model, whose frames give real
+        diameters), by `export.export_pipeline` traced on `device`,
+        enhanced at a fixed batch of b;
+      two_stage of the colour->class model traced on the CPU and moved to
+        `device` by `AotRunner` (B1 routed at run time).
+    Then `export_model` with a symbolic batch, its logits within 1e-5 of
+    `stages.forward_logits`, and `cli tools render-predictions` of the .pth
+    over `write_split` scenes. `model_size` sets every model input (None:
+    each preset's own; the CLI's artifact takes the preset's own, so with a
+    `model_size` that one is traced by `export_pipeline` too). Returns the
+    record: trace seconds, artifact bytes, the programs' custom-op calls,
+    launches, checks."""
+    import tempfile
+
+    from unet_tpu_torch.cli.main import load_model
+    from unet_tpu_torch.export import AotRunner, export_model, export_pipeline
+    from unet_tpu_torch.pipeline import presets, stages
+
+    def sized(cfg):
+        return cfg if model_size is None else cfg.replace_in(
+            "preprocess", model_size=(model_size, model_size))
+
+    model16 = seeded_nested_unet(dtype=torch.bfloat16)
+    two = sized(presets.two_stage())
+    scenes = {"two_stage": synthetic_frames(b, H, W, seed=20),
+              "enhanced": enhanced_scenes(b, H, W, seed=20),
+              "production": geometry_scenes("production", b, H, W, seed=20)}
+    t = time.time()
+    qcfg = stages.calibrate_int8(model16, two, [synthetic_frames(b, H, W, seed=28)],
+                                 device=device)
+    _log(f"export: calibrate_int8 in {time.time() - t:.1f} s")
+    rec = {"card": card, "pipelines": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as tmp:
+        tmp = Path(tmp)
+        pth = tmp / "m.pth"
+        torch.save(seeded_nested_unet().state_dict(), pth)
+        model, _, _ = load_model(str(pth), "nested_unet", "float32", 3)
+        fast = two.replace_in("segment", fast_forward=True)
+
+        def cli_export(art, cfg, m, hw):
+            if model_size is not None:
+                return export_pipeline(None, art, cfg=cfg, model=m, frame_hw=hw, device=device)
+            if _cli(["export", "--model", pth, "--output", art, "--pipeline", "two_stage",
+                     "--frame-hw", f"{hw[0]},{hw[1]}", "--device", device]) != 0:
+                raise AssertionError("cli export --pipeline two_stage failed")
+            return art
+
+        def on(dev, batch=None):
+            return lambda art, cfg, m, hw: export_pipeline(None, art, cfg=cfg, model=m,
+                                                           batch=batch, frame_hw=hw, device=dev)
+
+        enhanced = sized(presets.enhanced()).replace_in("preprocess", normalize_wh=(W, H))
+        cases = (  # name, expected launches, scenes, cfg, model, export, batches
+            ("two_stage_fp32_cli", "two_stage", "two_stage", fast, model, cli_export,
+             (b, b_small)),
+            ("two_stage_int8", "two_stage_int8", "two_stage", qcfg, model16, on(device), (b,)),
+            # enhanced at a fixed batch: with a symbolic one its trace took
+            # 27.8 s on the H100 machine's host, with a fixed one 15.5 s
+            ("enhanced_fp32", "enhanced", "enhanced", enhanced, model, on(device, b), (b,)),
+            ("production_colour", "production", "production", sized(presets.production()),
+             ColourClassModel(), on(device), (b,)),
+            ("two_stage_colour_traced_on_cpu", "two_stage", "two_stage", two,
+             ColourClassModel(), on("cpu"), (b,)))
+        for name, path, scene, cfg, m, make, batches in cases:
+            t = time.time()
+            art = make(str(tmp / f"{name}.pt2"), cfg, m, scenes[scene].shape[1:3])
+            trace_s = time.time() - t
+            t = time.time()
+            runner = AotRunner(art, device=device)
+            load_s = time.time() - t
+            live = stages.build_step(m, cfg, device=device)
+            r = dict(trace_s=trace_s, load_s=load_s, bytes=os.path.getsize(art),
+                     graph_ops=_graph_ops(runner.program), runs={})
+            for bb in batches:
+                frames = torch.from_numpy(scenes[scene][:bb]).to(device)
+                want, live_counts = _runner_counts(live, frames)
+                got, counts = _runner_counts(runner.run_tree, frames)
+                what = f"export {name}, b={bb}"
+                if counts != live_counts or counts != expect[path]:
+                    raise AssertionError(f"{what}: launches {counts}, the live step "
+                                         f"{live_counts}, expected {expect[path]}")
+                _tree_equal(got, want, what)
+                if got["class_map"].shape != (bb, H, W):
+                    raise AssertionError(f"{what}: class_map {got['class_map'].shape}")
+                run = dict(launches=counts, cable_px=got["cable_px"].tolist(),
+                           burr_px=got["burr_px"].tolist())
+                if cfg.geometry.enabled:
+                    run.update(_diameters_close(got["diameters"], want.diameters, what))
+                r["runs"][bb] = run
+                _log(f"{what}: equal to the live step; launches {counts}; exported in "
+                     f"{trace_s:.1f} s, {r['bytes']} bytes, loaded in {load_s:.1f} s; "
+                     f"burr_px {run['burr_px']} [{card}]")
+            rec["pipelines"][name] = r
+        if not sum(rec["pipelines"]["two_stage_colour_traced_on_cpu"]["runs"][b]["burr_px"]):
+            raise AssertionError("export: no burr in the colour model's two_stage frames")
+
+        # the bare forward, symbolic batch
+        ms = two.preprocess.model_size[0]
+        t = time.time()
+        art = export_model(None, str(tmp / "model.pt2"), model=model, input_size=ms,
+                           batch=None, device=device)
+        trace_s = time.time() - t
+        x = torch.from_numpy(np.random.default_rng(5).random((b_small, ms, ms, 3),
+                                                             dtype=np.float32))
+        got = AotRunner(art, device=device).run(x)
+        with torch.no_grad():
+            want = stages.forward_logits(model.to(device), x.to(device).permute(0, 3, 1, 2)
+                                         ).permute(0, 2, 3, 1).cpu().numpy()
+        err = float(np.abs(got - want).max())
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+        rec["model"] = dict(trace_s=trace_s, bytes=os.path.getsize(art), b=b_small,
+                            max_abs_err=err, max_abs_logit=float(np.abs(want).max()))
+        _log(f"export_model NestedUNet {ms}^2, symbolic batch: b={b_small} logits against "
+             f"the live forward max abs err {err:.3e} (largest logit "
+             f"{rec['model']['max_abs_logit']:.3f}); exported in {trace_s:.1f} s, "
+             f"{rec['model']['bytes']} bytes")
+
+        root = write_split(tmp / "data", 3, 1, H, W, seed=40)
+        isz = ["--image-size", model_size] if model_size else []
+        if _cli(["tools", "render-predictions", "--images-dir", f"{root}/train/images",
+                 "--mask-dir", f"{root}/train/masks", "--model", pth, "--out", tmp / "pred",
+                 "--device", device] + isz) != 0:
+            raise AssertionError("cli tools render-predictions failed")
+        rec["render_predictions"] = sorted(os.listdir(tmp / "pred"))
+        if len(rec["render_predictions"]) != 3:
+            raise AssertionError(f"render-predictions wrote {rec['render_predictions']}")
+    return rec
+
+
+def _diameters_close(got: dict, want, what: str) -> dict:
+    """An artifact's diameters against the live step's: float fields within
+    rtol 1e-5 (tests/test_export.py's gate), integer fields equal, a cable
+    diameter somewhere. Returns the largest relative error and dc_px."""
+    err = 0.0
+    for f, wv in want._asdict().items():
+        wv, gv = wv.cpu().numpy(), got[f]
+        if wv.dtype.kind == "f":
+            np.testing.assert_allclose(gv, wv, rtol=1e-5, err_msg=what)
+            err = max(err, float((np.abs(gv - wv) / np.maximum(np.abs(wv), 1e-30)).max()))
+        elif not np.array_equal(gv, wv):
+            raise AssertionError(f"{what}: diameters.{f} differs")
+    if not float(np.abs(got["dc_px"]).max()) > 0:
+        raise AssertionError(f"{what}: zero cable diameters, geometry untested")
+    return dict(diameters_max_rel_err=err, dc_px=got["dc_px"].tolist())
+
+
 def main() -> int:
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -2692,26 +2911,7 @@ def main() -> int:
     H, W = 448, 800
     cfgs = {"two_stage": presets.two_stage(), "enhanced": presets.enhanced(),
             **{p: presets.get_preset(p) for p in GEOMETRY_PATHS}}
-    # every B1 launch of the paths takes the cluster route: burr crops and
-    # the wrap path's 256x256 labels on clusters of 8, 448x800 labels of 16
-    def b1(k8, k16=0):
-        return {"cc_propagate": k8 + k16, "cc_propagate_cluster": k8 + k16,
-                "cc_propagate_global": 0, "cc_propagate_cluster8": k8,
-                "cc_propagate_cluster16": k16}
-    # int8: 17 convs on qconv's wgmma route, conv0_0.conv1 (Cin 3) on the c3 kernel
-    q0 = {"qconv": 0, "qconv_wgmma": 0, "qconv_sync": 0, "qconv_c3": 0}
-    expect = {"two_stage": dict(b1(2), nlm=0, **q0), "enhanced": dict(b1(2), nlm=3, **q0),
-              "two_stage_bf16": dict(b1(2), nlm=0, **q0),
-              "two_stage_int8": dict(b1(2), nlm=0, qconv=18, qconv_wgmma=17, qconv_sync=0,
-                                     qconv_c3=1),
-              # labels of the cable and tape: at the model's 256x256 (wrap),
-              # at 448x800 (three_class_full: 448 < its 512 model input)
-              "wrap_uniformity": dict(b1(2), nlm=0, **q0),
-              "three_class_full": dict(b1(0, 2), nlm=0, **q0),
-              # burr (2 on its crop) + cable and tape labels + defect analysis
-              # (holes, tape, cable count), all at 448x800
-              "production": dict(b1(2, 5), nlm=0, **q0),
-              **{p: dict(b1(*PRESET_B1[p]), nlm=0, **q0) for p in PRESET_PATHS}}
+    expect = expected_launches()
     scenes = {"two_stage": lambda b, seed: synthetic_frames(b, H, W, seed=seed),
               "enhanced": lambda b, seed: enhanced_scenes(b, H, W, seed=seed)}
 
@@ -2868,6 +3068,11 @@ def main() -> int:
     train = phase_train(card=card)
     engine_counts["engine_train_best_two_stage"] = train["cli"]["infer_launches_per_batch"]
 
+    # -- torch.export: the artifacts against the live steps, launches counted
+    export = phase_export(expect, H, W, card=card)
+    for name, r in export["pipelines"].items():
+        engine_counts[f"export_{name}"] = r["runs"][8]["launches"]
+
     # the mma.sync kernel has no main-path launch (conv0_0.conv1 takes the c3
     # kernel): its entry holds its time forced at that site, the c3 kernel's
     # yardstick
@@ -2923,7 +3128,7 @@ def main() -> int:
         "presets_b8": pre_timings, "preset_checks": pre_checks,
         "engine": engine, "inspect_engine": gate_engine, "config_runs": config_runs,
         "models_b8": mod_timings, "model_checks": mod_checks, "device_trace": trace,
-        "train": train,
+        "train": train, "export": export,
         "card": card, "seconds": round(time.time() - t_start, 1)}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -127,10 +127,11 @@ def test_int8_short_directory_holds_out_agreement_frames(tmp_path, capsys):
 
 
 def test_what_is_not_ported_names_its_item(data, tmp_path):
-    """What is not ported names its ROADMAP item; what A12, A13 and A14a
-    ported now runs: a pipeline YAML (`--config`), `--arch simple_unet` and a
-    ResNet50-NestedUNet .pth, each writing a row a frame; `train` and
-    `evaluate` over a labelled split."""
+    """What is not ported names its ROADMAP item; what A12, A13, A14 and
+    A15's export ported now runs: a pipeline YAML (`--config`), `--arch
+    simple_unet` and a ResNet50-NestedUNet .pth, each writing a row a frame;
+    `train` and `evaluate` over a labelled split; `tools` (audit,
+    summarize-checkpoints) and `export` of the trained model."""
     base = ["infer", "--video", data["burr"], "--output", str(tmp_path / "o"), "--device", "cpu"]
     split = cs.write_split(tmp_path / "split", 4, 2, 40, 56)
     assert main(["train", "--recipe", "3class_advanced", "--data-root", split, "--output",
@@ -141,11 +142,21 @@ def test_what_is_not_ported_names_its_item(data, tmp_path):
     assert json.loads((tmp_path / "e" / "metrics.json").read_text())["miou"] >= 0
     for argv, item in (
             (base + ["--model", str(tmp_path)], "A15"),
-            (["tools", "audit"], "A14"),
-            (["export", "--model", "m", "--output", "o"], "A15"),
             (["bench", "--config", "2"], "A5")):
         with pytest.raises(SystemExit, match=item):
             main(argv)
+    labelme = tmp_path / "labelme"
+    labelme.mkdir()
+    (labelme / "a.json").write_text(json.dumps({
+        "imageHeight": 40, "imageWidth": 56,
+        "shapes": [{"label": "cable", "points": [[2, 2], [30, 2], [30, 30], [2, 30]]}]}))
+    assert main(["tools", "audit", "--labelme-dir", str(labelme),
+                 "--out", str(tmp_path / "audit.json")]) == 0
+    assert json.loads((tmp_path / "audit.json").read_text())["total"] == 1
+    assert main(["tools", "summarize-checkpoints", "--ckpt-dir", str(tmp_path / "t")]) == 0
+    assert main(["export", "--model", str(tmp_path / "t" / "last.pth"), "--output",
+                 str(tmp_path / "m.pt2"), "--input-size", "32", "--device", "cpu"]) == 0
+    assert (tmp_path / "m.pt2").stat().st_size > 0
     from unet_tpu_torch.core.config import save_pipeline_yaml
 
     save_pipeline_yaml(presets.two_stage(), str(tmp_path / "p.yaml"))

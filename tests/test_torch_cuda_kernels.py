@@ -600,3 +600,49 @@ def test_multistream_server_on_the_card(card):
         assert (r.cable_px, r.tape_px) == (int(out.cable_px[0]), int(out.tape_px[0]))
         assert (r.dc_px, r.dt_px) == (float(out.diameters.dc_px[0]), float(out.diameters.dt_px[0]))
         assert r.dt_px > r.dc_px > 0
+
+
+def _op_inputs(device):
+    """Inputs of each custom op at main-path shapes: B1 on two_stage's CC
+    filter crop (C=4), B2 on one enhanced plane stack, qconv on a decoder
+    pair (wgmma route) and on the Cin-3 first conv (c3 route)."""
+    g = np.random.default_rng(3)
+    fg = torch.from_numpy(g.random((2, 448, 384)) > 0.55).to(device)
+    x = torch.from_numpy(noisy_planes((3, 448, 800), seed=4)).to(device)
+    q = lambda *s: torch.from_numpy(g.integers(-20, 21, s).astype(np.int8)).to(device)
+    mult = torch.from_numpy(g.random(64).astype(np.float32) * 0.01).to(torch.bfloat16).to(device)
+    bias = torch.from_numpy(g.random(64).astype(np.float32) - 0.5).to(torch.bfloat16).to(device)
+    return {"cc_propagate": [(cc._bbox_seed_state(fg), fg, 4, 64, 8)],
+            "nlm": [(x, 10.0, 7, 21)],
+            "qconv": [([q(2, 64, 64, 32), q(2, 64, 64, 64)], q(64, 3, 3, 96), mult, bias),
+                      ([q(2, 64, 64, 3)], q(64, 3, 3, 3), mult, bias)]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["cc_propagate", "nlm", "qconv"])
+def test_custom_op_cuda_matches_plain(card, op):
+    """Each kernel through its custom op, `torch.ops.unet_tpu_torch.<op>`,
+    on the card: one launch a call, the plain version's result (B1 and
+    qconv bit for bit, B2 within NLM_TOL), a new tensor; and
+    `torch.library.opcheck` (schema, the fake implementation against the
+    kernel's output, dispatch) on the card's inputs."""
+    plain = {"cc_propagate": lambda s, f, p, m, c: cc_kernels.propagate_plain(
+                 s, f, pool_iters=p, max_iters=m, connectivity=c),
+             "nlm": nlm_kernels.nlm_plain,
+             "qconv": lambda x, w, m, b: qconv_kernels.qconv_plain(tuple(x), w, m, b)}[op]
+    mod = {"cc_propagate": cc_kernels, "nlm": nlm_kernels, "qconv": qconv_kernels}[op]
+    fn = getattr(torch.ops.unet_tpu_torch, op)
+    for args in _op_inputs(card)[op]:
+        before = mod.launches
+        got = fn(*args)
+        torch.cuda.synchronize()
+        assert mod.launches == before + 1
+        assert got.is_cuda and all(got.data_ptr() != a.data_ptr() for a in args
+                                   if isinstance(a, torch.Tensor))
+        want = plain(*args)
+        if op == "nlm":
+            torch.testing.assert_close(got, want, **NLM_TOL)
+        else:
+            assert torch.equal(got, want)
+        result = torch.library.opcheck(fn.default, args)
+        assert set(result.values()) == {"SUCCESS"}, result

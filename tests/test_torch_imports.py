@@ -31,7 +31,10 @@ def test_every_module_imports_without_jax():
               "models.simple_unet", "models.resnet", "models.mobilenet", "models.shufflenet",
               "models.unetpp_lightweight", "models.losses", "ops.seg_metrics", "data.augment",
               "data.dataset", "data.loader", "train.monitor", "train.trainer",
-              "core.checkpoint", "train.loop", "train.recipes", "tools.evaluate"):
+              "core.checkpoint", "train.loop", "train.recipes", "tools.evaluate",
+              "data.labelme", "tools.frames_extract", "tools.dataset_audit", "tools.calibrate",
+              "tools.annotate", "tools.hard_negatives", "tools.visualize_dataset",
+              "tools.interactive", "export", "export.aot"):
         assert f"unet_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -57,6 +57,13 @@ def test_state_dict_round_trip_exact():
     x = torch.randn(1, 3, 32, 32, generator=gen)
     with torch.inference_mode():
         assert torch.equal(port.eval()(x), ref.eval()(x))
+    # train mode: the port's BatchNorm trains as flax's (E[x^2] - E[x]^2,
+    # models.blocks.BatchNorm2d), so the reference module runs with that
+    # BatchNorm too, and the rest of the two modules must agree exactly
+    from unet_tpu_torch.models.blocks import BatchNorm2d
+    for m in ref.modules():
+        if type(m) is torch.nn.BatchNorm2d:
+            m.__class__ = BatchNorm2d
     port.train()
     ref.train()
     outs, wants = port(x), ref(x)

@@ -201,3 +201,80 @@ def test_remat_equals_remat_off_and_bf16_gradients_reach_the_parameters():
     assert model16.conv0_0.bn1.running_var.dtype == torch.float32
     start = torch.from_numpy(variables["batch_stats"]["conv0_0"]["bn1"]["mean"])
     assert not torch.equal(model16.conv0_0.bn1.running_mean, start)
+
+
+def _two_pass_bn(bn, x):
+    """The port's train-mode BN before it took flax's variance: F.batch_norm's
+    two-pass variance and its analytic backward (statistics not moved)."""
+    import torch.nn.functional as F
+    return F.batch_norm(x.float(), None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
+
+
+def test_train_bn_takes_flax_fast_variance():
+    """A channel whose mean is about 100x its spread, where E[x^2] - E[x]^2
+    and the two-pass variance part: the port's train-mode BatchNorm equals
+    flax's (use_fast_variance, its default) in output, gradients and
+    running statistics within 1e-6 relative, and the two-pass form misses.
+    The inputs are dyadic with few bits, so the forward's sums are exact in
+    float32 and the two packages' summation orders cannot differ; flax runs
+    eagerly (its jitted gradient differs from its eager one by 2e-6 here:
+    XLA reorders the sums of the input's gradient, whose terms are 100x
+    their total)."""
+    import flax.linen as fnn
+    from unet_tpu_torch.models.blocks import BatchNorm2d
+
+    rng = np.random.default_rng(7)
+    n, c, h, w = 2, 3, 2, 4
+    spread = rng.integers(-8, 9, size=(n, h, w, c)) / 8.0            # multiples of 1/8
+    x = (np.array([100.0, 50.0, 0.0]) + spread).astype(np.float32)   # NHWC
+    dy = (rng.integers(-4, 5, size=x.shape) / 4.0).astype(np.float32)
+    scale = np.array([1.5, 0.75, 1.0], np.float32)
+    bias = np.array([0.25, -0.5, 0.0], np.float32)
+    ra_mean = np.array([1.0, 2.0, 0.5], np.float32)
+    ra_var = np.array([2.0, 1.0, 0.5], np.float32)
+
+    fbn = fnn.BatchNorm(use_running_average=False, momentum=0.9, epsilon=1e-5)
+    fvars = {"params": {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)},
+             "batch_stats": {"mean": jnp.asarray(ra_mean), "var": jnp.asarray(ra_var)}}
+
+    def f(params, xx):
+        y, upd = fbn.apply({"params": params, "batch_stats": fvars["batch_stats"]}, xx,
+                           mutable=["batch_stats"])
+        return jnp.sum(y * dy), (y, upd["batch_stats"])
+
+    (_, (jy, jstats)), (jgp, jgx) = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)(
+        fvars["params"], jnp.asarray(x))
+
+    bn = BatchNorm2d(c, eps=1e-5).train()
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(scale))
+        bn.bias.copy_(torch.from_numpy(bias))
+        bn.running_mean.copy_(torch.from_numpy(ra_mean))
+        bn.running_var.copy_(torch.from_numpy(ra_var))
+    nchw = lambda a: torch.from_numpy(np.ascontiguousarray(a.transpose(0, 3, 1, 2)))
+
+    def run(fn):
+        xt = nchw(x).requires_grad_(True)
+        for p in bn.parameters():
+            p.grad = None
+        y = fn(xt)
+        (y * nchw(dy)).sum().backward()
+        return (y.detach().permute(0, 2, 3, 1).numpy(), xt.grad.permute(0, 2, 3, 1).numpy(),
+                bn.weight.grad.numpy().copy(), bn.bias.grad.numpy().copy())
+
+    def rel(a, b):
+        b = np.asarray(b)
+        return float(np.abs(np.asarray(a) - b).max() / max(np.abs(b).max(), 1e-30))
+
+    want = (jy, jgx, jgp["scale"], jgp["bias"])
+    got = run(bn)
+    errs = [rel(g, w_) for g, w_ in zip(got, want)]
+    errs += [rel(bn.running_mean.numpy(), jstats["mean"]),
+             rel(bn.running_var.numpy(), jstats["var"])]
+    print("port vs flax (y, dx, dscale, dbias, running mean, running var):", errs)
+    assert max(errs) <= 1e-6, errs
+
+    two_pass = run(lambda t: _two_pass_bn(bn, t))
+    misses = [rel(g, w_) for g, w_ in zip(two_pass, want)]
+    print("two-pass vs flax (y, dx, dscale, dbias):", misses)
+    assert misses[0] > 1e-6 and misses[1] > 1e-6, misses

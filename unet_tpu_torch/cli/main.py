@@ -7,6 +7,12 @@
   inspect   YAML-configured window inspection (serve.inspect_tool)
   train     the training recipes (train.recipes; tools/train*.py family)
   evaluate  dataset mIoU, confusion CSV and metrics JSON (tools.evaluate)
+  tools     the dataset, calibration and annotation tools (tools/), 15 of
+            them; annotate, calibrate-roi and calibrate-scale also as
+            mouse-driven windows (--interactive, tools.interactive)
+  export    a torch.export program (.pt2) of the model forward, or of the
+            whole fused step with --pipeline (export.aot); the hand-written
+            kernels are custom ops of the program
 
 Every model of the JAX package runs (--arch): nested_unet,
 nested_unet_resnet50, simple_unet and lightweight[:encoder] with the
@@ -16,8 +22,9 @@ first three families loads with its family read from its keys, and a
 checkpoint of `train` (`best.pth`, `last.pth`) with its family read from
 its sidecar.
 
-`tools`, `export` and `bench` are not ported yet; each names the ROADMAP
-item that ports it and exits non-zero.
+`bench` is not ported yet (ROADMAP A5): it names its item and exits
+non-zero. Of ROADMAP A15, several devices and the JAX package's orbax
+checkpoint directories are not ported either.
 
 Every command runs on the card (`--device cuda`, the default) unless asked
 for the CPU. Run `python -m unet_tpu_torch.cli <cmd> --help`.
@@ -36,9 +43,7 @@ import torch
 import torch.nn as nn
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_NOT_PORTED = {"tools": "ROADMAP A14b (tools/)",
-               "export": "ROADMAP A15 (export)",
-               "bench": "ROADMAP A5 (the port bench)"}
+_NOT_PORTED = {"bench": "ROADMAP A5 (the port bench)"}
 N_CALIB = 16
 ARCHS = ("nested_unet", "nested_unet_resnet50", "simple_unet",
          "lightweight[:custom|resnet18|resnet34|mobilenet_v3_small|mobilenet_v3_large|"
@@ -297,6 +302,188 @@ def cmd_evaluate(args) -> int:
     return 0
 
 
+# per-tool required flags (the tools share one parser's optional flags, so
+# argparse cannot enforce them); a tuple means "at least one of"
+_TOOL_REQUIRES = {
+    "extract-frames": ["video", "out"],
+    "audit": ["labelme_dir"],
+    "class-dist": ["mask_dir"],
+    "remap-masks": ["mask_dir", "out", "mapping"],
+    "prepare-dataset": ["labelme_dir", "images_dir", "out"],
+    "hard-negatives": ["videos_dir", "out"],
+    "calibrate-roi": ["video"],
+    "calibrate-scale": ["points", "known_mm"],
+    "diagnose-mask": [("mask", "mask_dir")],
+    "update-dataset": ["images_dir", "mask_dir", "out"],
+    "render-masks": ["images_dir", "mask_dir", "out"],
+    "render-predictions": ["images_dir", "out"],
+    "annotate": ["out", "frame_id", "filename", "box"],
+    "annotate-to-labelme": ["annotations_dir", "images_dir", "out"],
+    "summarize-checkpoints": ["ckpt_dir"],
+}
+TOOLS = tuple(_TOOL_REQUIRES)
+
+
+def _cmd_tools_interactive(args) -> int:
+    """Mouse-driven annotate / calibrate-roi / calibrate-scale (reference
+    tools/annotate_burr.py, calibrate_roi.py, calibrate_scale.py): the
+    sessions of tools/interactive.py in a cv2 window."""
+    from unet_tpu_torch.tools import interactive as I
+
+    def first_frame():
+        import cv2
+        if args.video:
+            cap = cv2.VideoCapture(args.video)
+            ok, frame = cap.read()
+            cap.release()
+            if not ok:
+                raise SystemExit(f"cannot read a frame from {args.video}")
+            return frame
+        if args.filename:
+            im = cv2.imread(args.filename)
+            if im is None:
+                raise SystemExit(f"cannot read {args.filename}")
+            return im
+        raise SystemExit("--video or --filename is required")
+
+    if args.tool == "annotate":
+        if not (args.frames_dir and args.out):
+            raise SystemExit("annotate --interactive needs --frames-dir + --out")
+        sess = I.AnnotationSession(args.frames_dir, args.out)
+        I.run_window(sess, window="annotate burrs")
+        print(f"{len(sess.annotations)} frames annotated -> {args.out}")
+    elif args.tool == "calibrate-roi":
+        sess = I.RoiCalibrationSession(first_frame(), out_path=args.out or "roi.json")
+        I.run_window(sess, window="calibrate ROI")
+        print(f"ROI: {sess.roi}" + (f" -> {sess.out_path}" if sess.saved else " (not saved)"))
+    elif args.tool == "calibrate-scale":
+        if args.known_mm is None:
+            raise SystemExit("calibrate-scale --interactive needs --known-mm")
+        sess = I.ScaleCalibrationSession(first_frame(), args.known_mm)
+        I.run_window(sess, window="calibrate scale")
+        if sess.mm_per_px is None:
+            raise SystemExit("need two clicked points")
+        out = {"mm_per_px": sess.mm_per_px, "known_mm": args.known_mm}
+        print(json.dumps(out))
+        if args.out:
+            Path(args.out).write_text(json.dumps(out, indent=2))
+    else:
+        raise SystemExit(f"tools {args.tool} has no --interactive mode")
+    return 0
+
+
+def cmd_tools(args) -> int:
+    """The dataset, calibration and annotation tools (unet_tpu/cli/main.py:
+    389-520); render-predictions runs its model on --device."""
+    from unet_tpu_torch import tools as T
+
+    if args.interactive:
+        return _cmd_tools_interactive(args)
+
+    for req in _TOOL_REQUIRES[args.tool]:
+        names = req if isinstance(req, tuple) else (req,)
+        if not any(getattr(args, n, None) not in (None, "", []) for n in names):
+            opts = " or ".join("--" + n.replace("_", "-") for n in names)
+            raise SystemExit(f"tools {args.tool}: {opts} is required")
+
+    if args.tool == "extract-frames":
+        roi = tuple(map(int, args.roi.split(","))) if args.roi else None
+        T.extract_frames(args.video, args.out, fps=args.fps, roi=roi, dedup=args.dedup)
+    elif args.tool == "audit":
+        report = T.audit_labelme_dir(args.labelme_dir)
+        print(json.dumps({k: (v if not isinstance(v, list) else len(v))
+                          for k, v in report.items()}, indent=2))
+        if args.out:
+            Path(args.out).write_text(json.dumps(report, indent=2, default=str))
+    elif args.tool == "class-dist":
+        print(json.dumps(T.class_pixel_distribution(args.mask_dir, args.num_classes), indent=2))
+    elif args.tool == "remap-masks":
+        mapping = dict(pair.split(":") for pair in args.mapping.split(","))
+        n = T.remap_masks(args.mask_dir, args.out, {int(k): int(v) for k, v in mapping.items()})
+        print(f"remapped {n} masks")
+    elif args.tool == "prepare-dataset":
+        from unet_tpu_torch.data.labelme import prepare_dataset
+        prepare_dataset(args.labelme_dir, args.images_dir, args.out)
+    elif args.tool == "hard-negatives":
+        T.create_hard_negative_dataset(args.videos_dir, args.out, num_frames=args.num_frames)
+    elif args.tool == "calibrate-roi":
+        roi = T.propose_roi_from_video(args.video)
+        T.save_roi_json(args.out or "roi.json", roi["x"], roi["y"], roi["w"], roi["h"])
+        print(f"proposed ROI: {roi}")
+    elif args.tool == "calibrate-scale":
+        # two points spanning a known distance -> mm/px (reference
+        # tools/calibrate_scale.py:17-52, headless)
+        vals = [float(v) for v in args.points.split(",")]
+        if len(vals) != 4:
+            raise SystemExit("--points must be x1,y1,x2,y2")
+        mm_per_px = T.scale_from_two_points((vals[0], vals[1]), (vals[2], vals[3]),
+                                            args.known_mm)
+        out = {"mm_per_px": mm_per_px, "known_mm": args.known_mm}
+        print(json.dumps(out))
+        if args.out:
+            Path(args.out).write_text(json.dumps(out, indent=2))
+    elif args.tool == "diagnose-mask":
+        import os
+
+        from unet_tpu_torch.data.dataset import imread_mask
+        paths = ([os.path.join(args.mask_dir, f) for f in sorted(os.listdir(args.mask_dir))
+                  if f.lower().endswith(".png")] if args.mask_dir else [args.mask])
+        resized = tuple(int(v) for v in args.resize.split(",")) if args.resize else None
+        report = {p: T.diagnose_mask(imread_mask(p), args.num_classes, resized_hw=resized)
+                  for p in paths}
+        print(json.dumps(report, indent=2, default=str))
+    elif args.tool == "update-dataset":
+        counts = T.update_dataset(args.images_dir, args.mask_dir, args.out,
+                                  val_ratio=args.val_ratio, test_ratio=args.test_ratio,
+                                  seed=args.seed)
+        print(f"split counts: {counts}")
+    elif args.tool == "render-masks":
+        n = T.render_masks(args.images_dir, args.mask_dir, args.out, limit=args.limit)
+        print(f"rendered {n} overlays to {args.out}")
+    elif args.tool == "render-predictions":
+        model, num_classes, _ = load_model(args.model, args.arch, args.dtype, args.num_classes)
+        inf = T.SingleImageInference(model, input_size=args.image_size or 512,
+                                     num_classes=num_classes, device=args.device)
+        n = T.render_predictions(inf, args.images_dir, args.mask_dir, args.out, limit=args.limit)
+        print(f"rendered {n} comparison grids to {args.out}")
+    elif args.tool == "annotate":
+        # headless rectangle burr annotation: the burr_annotations.json
+        # schema of the reference's mouse tool (tools/annotate_burr.py)
+        ann = T.load_annotations(args.out)
+        try:
+            boxes = [[float(v) for v in b.split(",")] for b in args.box]
+        except ValueError:
+            raise SystemExit("--box must be x1,y1,x2,y2") from None
+        if any(len(b) != 4 for b in boxes):
+            raise SystemExit("--box must be x1,y1,x2,y2")
+        T.add_boxes(ann, args.frame_id, args.filename, boxes, replace=args.replace)
+        path = T.save_annotations(args.out, ann)
+        n = len(ann[str(args.frame_id)]["burr_regions"])
+        print(f"frame {args.frame_id}: {n} boxes -> {path}")
+    elif args.tool == "annotate-to-labelme":
+        ann = T.load_annotations(args.annotations_dir)
+        n = T.annotations_to_labelme(ann, args.images_dir, args.out, label=args.label)
+        print(f"wrote {n} labelme JSONs to {args.out}")
+    else:   # summarize-checkpoints
+        T.summarize_checkpoints(args.ckpt_dir)
+    return 0
+
+
+def cmd_export(args) -> int:
+    """A torch.export program of the model forward, or with --pipeline of
+    the whole fused step, traced on --device (unet_tpu/cli/main.py:265-278)."""
+    from unet_tpu_torch.export.aot import export_model, export_pipeline
+
+    if args.pipeline:
+        h, w = (int(v) for v in args.frame_hw.split(","))
+        export_pipeline(args.model, args.output, preset=args.pipeline, batch=args.batch,
+                        frame_hw=(h, w), arch=args.arch, device=args.device)
+        return 0
+    export_model(args.model, args.output, arch=args.arch, input_size=args.input_size,
+                 batch=args.batch, device=args.device)
+    return 0
+
+
 def cmd_not_ported(args) -> int:
     raise SystemExit(f"{args.cmd}: not ported to unet_tpu_torch yet, "
                      f"{_NOT_PORTED[args.cmd]}; the JAX package has it "
@@ -411,6 +598,72 @@ def build_parser() -> argparse.ArgumentParser:
                     help="dir for confusion_matrix.csv + metrics.json")
     device_flag(pv)
     pv.set_defaults(fn=cmd_evaluate)
+
+    pe = sub.add_parser("export", help="torch.export program (.pt2) of the model or the step")
+    pe.add_argument("--model", required=True,
+                    help="reference .pth or a checkpoint of train (best.pth, last.pth)")
+    pe.add_argument("--output", required=True)
+    pe.add_argument("--arch", default="nested_unet", help=_ARCH_HELP)
+    pe.add_argument("--input-size", type=int, default=512)
+    pe.add_argument("--batch", type=int, default=None,
+                    help="None = dynamic batch dim (reference export_onnx.py)")
+    pe.add_argument("--pipeline", default=None,
+                    help="export the whole fused pipeline step of this preset "
+                         "(preprocess+forward+burr+stats) instead of the bare model forward")
+    pe.add_argument("--frame-hw", default="448,800",
+                    help="input frame H,W for --pipeline artifacts")
+    device_flag(pe)
+    pe.set_defaults(fn=cmd_export)
+
+    pk = sub.add_parser("tools", help="dataset/calibration utilities")
+    pk.add_argument("tool", choices=TOOLS)
+    pk.add_argument("--video", default=None)
+    pk.add_argument("--videos-dir", default=None)
+    pk.add_argument("--labelme-dir", default=None)
+    pk.add_argument("--images-dir", default=None)
+    pk.add_argument("--mask-dir", default=None)
+    pk.add_argument("--mask", default=None, help="single mask png (diagnose-mask)")
+    pk.add_argument("--out", default=None)
+    pk.add_argument("--fps", type=float, default=5.0)
+    pk.add_argument("--roi", default="")
+    pk.add_argument("--dedup", type=float, default=0.97)
+    pk.add_argument("--num-classes", type=int, default=7)
+    pk.add_argument("--num-frames", type=int, default=200)
+    pk.add_argument("--mapping", default="")
+    pk.add_argument("--points", default="", help="x1,y1,x2,y2 for calibrate-scale")
+    pk.add_argument("--known-mm", type=float, default=None,
+                    help="real distance between --points")
+    pk.add_argument("--resize", default=None,
+                    help="H,W to test nearest-resize value preservation")
+    pk.add_argument("--val-ratio", type=float, default=0.1)
+    pk.add_argument("--test-ratio", type=float, default=0.1)
+    pk.add_argument("--seed", type=int, default=42)
+    pk.add_argument("--limit", type=int, default=None)
+    pk.add_argument("--frame-id", type=int, default=None,
+                    help="frame id to annotate (annotate)")
+    pk.add_argument("--filename", default=None, help="frame image filename (annotate)")
+    pk.add_argument("--box", action="append", default=[],
+                    help="x1,y1,x2,y2 burr rectangle; repeatable (annotate)")
+    pk.add_argument("--replace", action="store_true",
+                    help="replace the frame's existing boxes (annotate)")
+    pk.add_argument("--annotations-dir", default=None,
+                    help="dir holding burr_annotations.json (annotate-to-labelme)")
+    pk.add_argument("--label", default="burr_defect",
+                    help="labelme class label (annotate-to-labelme)")
+    pk.add_argument("--interactive", action="store_true",
+                    help="mouse-driven cv2 window (annotate / calibrate-roi / "
+                         "calibrate-scale); needs a display, headless hosts use the "
+                         "flag-driven variants")
+    pk.add_argument("--frames-dir", default=None,
+                    help="extracted-frames dir (annotate --interactive)")
+    pk.add_argument("--ckpt-dir", default=None, help="checkpoint dir (summarize-checkpoints)")
+    pk.add_argument("--model", default=None,
+                    help="reference .pth or a checkpoint of train (render-predictions)")
+    pk.add_argument("--arch", default="nested_unet", help=_ARCH_HELP)
+    pk.add_argument("--dtype", default="float32", choices=list(_DTYPES))
+    pk.add_argument("--image-size", type=int, default=512)
+    device_flag(pk)
+    pk.set_defaults(fn=cmd_tools)
 
     for name, item in _NOT_PORTED.items():
         sub.add_parser(name, help=f"not ported yet: {item}").set_defaults(fn=cmd_not_ported)

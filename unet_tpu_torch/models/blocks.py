@@ -85,29 +85,39 @@ def remat(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
 
 class BatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d in eval mode. In train mode flax's BatchNorm
-    (flax.linen.BatchNorm with use_running_average=False): the batch's
-    mean and biased variance, reduced in float32 whatever the input's type,
-    normalise the input in float32, and the running statistics move to
-    them at `momentum` (torch's convention: 0.1 is flax's 0.9). nn.BatchNorm2d
-    would fold the unbiased variance into `running_var`. `momentum=None`
-    keeps torch's cumulative average (of the biased variance). The output
-    has the input's type."""
+    (flax.linen.BatchNorm with use_running_average=False and its default
+    use_fast_variance=True): in float32 whatever the input's type, the
+    batch's mean and the variance max(0, E[x^2] - E[x]^2); the output
+    (x - mean) * (rsqrt(var + eps) * weight) + bias, with autograd through
+    that formula; the running statistics move to the same mean and variance
+    at `momentum` (torch's convention: 0.1 is flax's 0.9). Where a channel's
+    mean is large against its spread, this variance differs from the
+    two-pass one of F.batch_norm, whose backward differs too.
+    `momentum=None` keeps torch's cumulative average. The output has the
+    input's type."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        # squares as jax's lax.square, whose derivative 2 * x * g is one
+        # product (x * x's two paths add up in another order)
+        var = torch.clamp(torch.square(xf).mean(dim=(0, 2, 3)) - torch.square(mean), min=0.0)
         if self.track_running_stats and not _recomputing():
             with torch.no_grad():
-                var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
                 self.num_batches_tracked.add_(1)
                 m = (1.0 / float(self.num_batches_tracked) if self.momentum is None
                      else self.momentum)
                 self.running_mean.mul_(1 - m).add_(mean, alpha=m)
                 self.running_var.mul_(1 - m).add_(var, alpha=m)
-        w = None if self.weight is None else self.weight.float()
-        b = None if self.bias is None else self.bias.float()
-        return F.batch_norm(xf, None, None, w, b, True, 0.0, self.eps).to(x.dtype)
+        mul = torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            mul = mul * self.weight.float()
+        y = (xf - mean[:, None, None]) * mul[:, None, None]
+        if self.bias is not None:
+            y = y + self.bias.float()[:, None, None]
+        return y.to(x.dtype)
 
 
 class ConvBlock(nn.Module):

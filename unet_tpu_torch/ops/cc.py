@@ -43,7 +43,7 @@ def _bbox_seed_state(fg: torch.Tensor) -> torch.Tensor:
     rows = torch.arange(H, dtype=torch.int32, device=fg.device)[:, None].expand(H, W)
     cols = torch.arange(W, dtype=torch.int32, device=fg.device)[None, :].expand(H, W)
     seed = torch.stack([_label_seed(H, W, fg.device), -rows, cols, -cols])
-    return seed[None].expand(B, 4, H, W).contiguous()
+    return seed[None].repeat(B, 1, 1, 1)
 
 
 def filter_components_by_geometry(mask: torch.Tensor, min_area: int, max_area: int,
@@ -94,7 +94,7 @@ def connected_components(mask: torch.Tensor, connectivity: int = 8,
     lead = mask.shape[:-2]
     H, W = mask.shape[-2:]
     fg = mask.reshape(-1, H, W).to(torch.bool).contiguous()
-    state0 = _label_seed(H, W, fg.device).expand(fg.shape[0], 1, H, W).contiguous()
+    state0 = _label_seed(H, W, fg.device).repeat(fg.shape[0], 1, 1, 1)
     out = cc_kernels.propagate(state0, fg, pool_iters=16, max_iters=max_iters,
                                connectivity=connectivity)
     return torch.where(fg, out[:, 0], -1).reshape(lead + (H, W))

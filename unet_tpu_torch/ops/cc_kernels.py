@@ -11,11 +11,14 @@ iteration `pool_iters` Jacobi masked min-pools, then a segmented run-min
 along rows, then along columns, until nothing changes or `max_iters`
 iterations ran. So all equal the JAX package even where it truncates.
 
-`propagate` dispatches on the device of its input: a CPU tensor goes to
-`propagate_plain`; a CUDA tensor launches a kernel or raises. Which kernel
-is decided from the plane's shape before the launch (`route`): a plane
-whose stripe fits a thread-block cluster's shared memory takes the cluster
-kernel (`propagate_cluster`), a larger one the global-memory kernel
+`propagate` calls the custom op `torch.ops.unet_tpu_torch.cc_propagate`,
+which dispatches on the device of its input: a CPU tensor goes to
+`propagate_plain`; a CUDA tensor launches a kernel or raises. The op's fake
+implementation gives `torch.export` the output's shape, so an exported step
+launches the same kernel the same way. Which kernel is decided from the
+plane's shape at the launch (`route`): a plane whose stripe fits a
+thread-block cluster's shared memory takes the cluster kernel
+(`propagate_cluster`), a larger one the global-memory kernel
 (`propagate_global`), as `cc_pallas.supported` splits the JAX package's
 routes. `launches` counts every kernel launch; `launches_cluster` and
 `launches_global` count each route's, and `launches` is their sum;
@@ -105,13 +108,30 @@ def propagate(state0: torch.Tensor, fg: torch.Tensor, *, pool_iters: int,
     Background pixels keep their seeds.
     """
     _check(state0, fg, pool_iters, max_iters, connectivity)
+    if state0.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"propagate runs on cpu or cuda, not {state0.device}")
+    return torch.ops.unet_tpu_torch.cc_propagate(state0, fg, pool_iters, max_iters, connectivity)
+
+
+@torch.library.custom_op("unet_tpu_torch::cc_propagate", mutates_args=(), device_types="cpu")
+def _cc_propagate_op(state0: torch.Tensor, fg: torch.Tensor, pool_iters: int,
+                     max_iters: int, connectivity: int) -> torch.Tensor:
+    return propagate_plain(state0, fg, pool_iters=pool_iters, max_iters=max_iters,
+                           connectivity=connectivity).contiguous()
+
+
+@_cc_propagate_op.register_kernel("cuda")
+def _(state0, fg, pool_iters, max_iters, connectivity):
     kw = dict(pool_iters=pool_iters, max_iters=max_iters, connectivity=connectivity)
-    if state0.device.type == "cpu":
-        return propagate_plain(state0, fg, **kw)
     which, K = route(*state0.shape[-2:])
     if which == "cluster":
         return propagate_cluster(state0, fg, cluster=K, **kw)
     return propagate_global(state0, fg, **kw)
+
+
+@_cc_propagate_op.register_fake
+def _(state0, fg, pool_iters, max_iters, connectivity):
+    return state0.new_empty(state0.shape)
 
 
 def _cuda_args(state0: torch.Tensor, fg: torch.Tensor, pool_iters: int,

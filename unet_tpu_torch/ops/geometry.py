@@ -194,7 +194,7 @@ def analyze_defects(pred_mask: torch.Tensor, cable_cls: int = 1, tape_cls: int =
 
     tape_top = top(tape)
     tape_ncc = (tape_top > 0).sum(-1, dtype=torch.int32).reshape(lead)
-    largest = tape_top[:, 0].reshape(lead)   # the top-k's first entry: the largest area
+    largest = tape_top.reshape(*lead, -1)[..., 0]   # the top-k's first entry: the largest area
 
     d_areas = torch.stack([(pred_mask == c).sum(dim=(-2, -1), dtype=torch.int32)
                            for c in defect_classes], dim=-1)

@@ -212,10 +212,10 @@ def letterbox(img: torch.Tensor, dst_hw: Sequence[int], pad_value: float = 0.0,
     h_ax = _channel_axes(img, channel_dim)
     new_h, new_w, pt, pl = letterbox_params(img.shape[h_ax:h_ax + 2], dst_hw)
     x = resize_bilinear(img, (new_h, new_w), channel_dim)
-    out = torch.full(img.shape[:h_ax] + (int(dst_hw[0]), int(dst_hw[1])) + img.shape[h_ax + 2:],
-                     pad_value, dtype=x.dtype, device=x.device)
-    out.narrow(h_ax, pt, new_h).narrow(h_ax + 1, pl, new_w).copy_(x)
-    return out
+    # F.pad's widths run from the last axis back: the trailing axes, W, H
+    pad = (0, 0) * (img.ndim - h_ax - 2) + (pl, int(dst_hw[1]) - new_w - pl,
+                                            pt, int(dst_hw[0]) - new_h - pt)
+    return torch.nn.functional.pad(x, pad, value=pad_value)
 
 
 def unletterbox_mask(mask: torch.Tensor, src_hw: Sequence[int],

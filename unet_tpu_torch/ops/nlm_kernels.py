@@ -12,10 +12,11 @@ is applied inside. They agree up to float summation order, within the JAX
 package's own gate for its kernel (rtol 2e-5, atol 2e-3,
 tests/test_nlm_pallas.py).
 
-`nlm` dispatches on the device of its input: a CPU tensor goes to
-`nlm_plain`, a CUDA tensor launches the kernel or raises. `launches` counts
-kernel launches. On the card the weight comes from the MUFU exp2 alone,
-inside the gate.
+`nlm` calls the custom op `torch.ops.unet_tpu_torch.nlm`, which dispatches
+on the device of its input: a CPU tensor goes to `nlm_plain`, a CUDA tensor
+launches the kernel or raises; its fake implementation lets `torch.export`
+trace through it. `launches` counts kernel launches. On the card the
+weight comes from the MUFU exp2 alone, inside the gate.
 """
 from __future__ import annotations
 
@@ -50,12 +51,20 @@ def nlm(x: torch.Tensor, h: float, template: int = 7, search: int = 21) -> torch
     """Non-local means of each (H, W) plane of the (B, H, W) float32 stack
     `x`, with filter strength `h`, a `template` x `template` patch and a
     `search` x `search` window. Returns (B, H, W) float32."""
-    global launches
     _check(x, h, template, search)
-    if x.device.type == "cpu":
-        return nlm_plain(x, h, template, search)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"nlm runs on cpu or cuda, not {x.device}")
+    return torch.ops.unet_tpu_torch.nlm(x, float(h), template, search)
+
+
+@torch.library.custom_op("unet_tpu_torch::nlm", mutates_args=(), device_types="cpu")
+def _nlm_op(x: torch.Tensor, h: float, template: int, search: int) -> torch.Tensor:
+    return nlm_plain(x, h, template, search)
+
+
+@_nlm_op.register_kernel("cuda")
+def _(x, h, template, search):
+    global launches
     if not x.is_contiguous():
         raise ValueError("nlm needs a contiguous x")
     B, H, W = x.shape
@@ -72,6 +81,11 @@ def nlm(x: torch.Tensor, h: float, template: int = 7, search: int = 21) -> torch
         raise RuntimeError(f"nlm launch failed: CUDA error {err}")
     launches += 1
     return out
+
+
+@_nlm_op.register_fake
+def _(x, h, template, search):
+    return x.new_empty(x.shape)
 
 
 def nlm_plain(x: torch.Tensor, h: float, template: int = 7, search: int = 21) -> torch.Tensor:

@@ -21,9 +21,11 @@ Both kernels and `qconv_plain` agree bit for bit: the accumulator is exact in
 all three (the plain version sums in float64, exact for every |acc| <=
 127 * 127 * 9 * 768 < 2**53), and the epilogue rounds at the same places.
 
-`qconv` dispatches on the device of its input: a CPU tensor goes to
-`qconv_plain`, a CUDA tensor launches a kernel or raises. Which kernel is a
-pure function of the shapes, the plane width and the alignment (`route`):
+`qconv` calls the custom op `torch.ops.unet_tpu_torch.qconv` (its one or
+two sources a `Tensor[]`), which dispatches on the device of its input: a
+CPU tensor goes to `qconv_plain`, a CUDA tensor launches a kernel or raises;
+its fake implementation lets `torch.export` trace through it. Which kernel
+is a pure function of the shapes, the plane width and the alignment (`route`):
 the wgmma kernel for every source width a multiple of 32 (17 of the int8
 forward's 18 convs), the c3 kernel for one source of 3 channels
 (conv0_0.conv1), the mma.sync kernel otherwise (ragged or misaligned
@@ -34,7 +36,7 @@ their sum.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple, Union
+from typing import List, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -158,9 +160,25 @@ def qconv(x: Source, wq: torch.Tensor, mult: torch.Tensor, bias: torch.Tensor) -
     """The fused int8 conv + requant; (B, H, W, N) int8. A CUDA input
     launches the kernel that `route` names."""
     srcs = _check(x, wq, mult, bias)
-    if srcs[0].device.type == "cpu":
-        return qconv_plain(x, wq, mult, bias)
-    return _launch(srcs, wq, mult, bias, force_sync=False)
+    if srcs[0].device.type not in ("cpu", "cuda"):
+        raise ValueError(f"qconv runs on cpu or cuda, not {srcs[0].device}")
+    return torch.ops.unet_tpu_torch.qconv(list(srcs), wq, mult, bias)
+
+
+@torch.library.custom_op("unet_tpu_torch::qconv", mutates_args=(), device_types="cpu")
+def _qconv_op(x: List[torch.Tensor], wq: torch.Tensor, mult: torch.Tensor,
+              bias: torch.Tensor) -> torch.Tensor:
+    return qconv_plain(tuple(x), wq, mult, bias)
+
+
+@_qconv_op.register_kernel("cuda")
+def _(x, wq, mult, bias):
+    return _launch(tuple(x), wq, mult, bias, force_sync=False)
+
+
+@_qconv_op.register_fake
+def _(x, wq, mult, bias):
+    return x[0].new_empty((*x[0].shape[:3], wq.shape[0]))
 
 
 def qconv_sync(x: Source, wq: torch.Tensor, mult: torch.Tensor,

@@ -426,9 +426,8 @@ def _burr_on_roi_crop(gray: torch.Tensor, cable: torch.Tensor,
         kw["mag_max"] = torch.amax(_edges.sobel_magnitude(gray), dim=(-2, -1))
     crop = burr_fn(gray[..., y1:y2, x1:x2].contiguous(),
                    cable[..., y1:y2, x1:x2].contiguous(), cfg.burr, **kw)
-    out = torch.zeros(gray.shape, dtype=torch.bool, device=gray.device)
-    out[..., y1:y2, x1:x2] = crop
-    return out
+    H, W = frame_hw
+    return torch.nn.functional.pad(crop, (x1, W - x2, y1, H - y2))
 
 
 # ---------------------------------------------------------------------------
