@@ -153,6 +153,19 @@ Phases; any failure exits non-zero and prints no result line:
      diameters within rtol 1e-5) at 512^2, one two_stage program traced on
      the CPU and run on the card; `export_model`'s logits within 1e-5; `cli tools
      render-predictions` on the card
+ 11. the device mesh (`phase_mesh`, after phase 10) at world size 1 on NCCL
+     (`parallel.make_mesh()` starts a one-rank group): `two_stage` fp32 (with
+     the quality statistics) and int8 through `parallel.shard_pipeline_step`
+     against `build_step` on b=8 frames with the seeded NestedUNet, every
+     output tensor bit for bit and B1 2 (qconv 18) launches a batch;
+     `make_train_step(mesh=...)` against `make_train_step`, two micro-steps
+     of 3class_advanced at 512^2, b=2, bit for bit under torch's
+     deterministic algorithms (metrics, gradients, parameters and BN
+     statistics); `MultiStreamServer(mesh=...)` against
+     the bare server over 8 streams of 48 frames; ms per batch, per
+     micro-step and frames/s of each beside the bare one (the collectives'
+     cost at one rank). Phase 9's `cli train` runs go through
+     `train.loop.train_model`, and so over the mesh, too
 Then, on the last two lines, the kernels' JSON record and
 {"ok": true, "device": {...}}.
 
@@ -161,6 +174,7 @@ tests (tests/test_torch_pipeline.py and others) drive the same inputs.
 """
 from __future__ import annotations
 
+import contextlib
 import csv
 import json
 import os
@@ -2863,6 +2877,241 @@ def phase_export(expect, H=448, W=800, device="cuda", b=8, b_small=3, model_size
     return rec
 
 
+def _leaves(out, prefix="") -> dict:
+    """{name: tensor} of every tensor in a step's (nested) outputs."""
+    d = {}
+    for name, v in out._asdict().items():
+        if isinstance(v, torch.Tensor):
+            d[prefix + name] = v
+        elif v is not None:
+            d.update(_leaves(v, f"{prefix}{name}."))
+    return d
+
+
+def _mesh_train_run(mesh, images, labels, device, steps: int = 2) -> dict:
+    """`steps` micro-steps of the 3class_advanced loss and optimizer
+    (accumulation 2) from `seeded_train_model`'s weights, over `mesh`
+    (`parallel.shard_train_step`) or without one: each micro-step's metrics,
+    the gradient of the first (MultiSteps' accumulator), the parameters and
+    BN statistics after the last, on the CPU."""
+    from unet_tpu_torch.parallel import put_batch
+    from unet_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    loss, optim = _advanced_recipe()
+    state = create_train_state(seeded_train_model(), optim, device)
+    step = make_train_step(loss, mesh=mesh)
+    if mesh is None:
+        x, y = torch.from_numpy(images).to(device), torch.from_numpy(labels).to(device)
+    else:
+        x, y = put_batch(mesh, images, labels, local=False)
+    x, y = x.permute(0, 3, 1, 2).contiguous(), y.long()
+    metrics, grads = [], None
+    for i in range(steps):
+        state, m = step(state, x, y)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            grads = [g.detach().cpu().clone() for g in state.acc_grads]
+    sd = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+    return dict(metrics=metrics, grads=grads, state=sd, train_step=step, train_state=state,
+                x=x, y=y)
+
+
+def phase_mesh(expect, H=448, W=800, device="cuda", b=8, train_size=512, train_b=2,
+               time_b=8, streams=8, frames_per_stream=48, reps=5, repeats=3, model_size=None,
+               card=""):
+    """The device mesh (phase 11) at world size 1 (`parallel.make_mesh()`: NCCL
+    on the card, gloo on the CPU), against the same work without a mesh:
+      * `parallel.shard_pipeline_step(build_step(...), mesh)` against
+        `build_step` on the same b frames: the seeded 3-class NestedUNet,
+        `two_stage` fp32 with the quality statistics (and the previous
+        batch's last frame) and `two_stage` int8 (`calibrate_int8`, the
+        bf16 model); every output tensor bit for bit and each step's
+        launches per batch equal to `expect`; ms per batch of both in turns
+        (median of `reps`)
+      * `make_train_step(mesh=...)` (`shard_train_step`) against
+        `make_train_step`: two micro-steps of 3class_advanced (accumulation
+        2) from the same seeded weights at `train_size`^2, b=`train_b`,
+        with torch's deterministic algorithms (without them the card's
+        backward does not repeat itself; how far the bare step strays from
+        itself is recorded): loss, parts and grad norm, the first
+        micro-step's gradient, and the parameters and BN statistics after
+        the update, bit for bit; ms per micro-step of both at b=`time_b`,
+        in turns (median of `reps`), with the default algorithms
+      * `MultiStreamServer(mesh=...)` against the server without a mesh,
+        wrap_uniformity with the colour->class model over `streams` streams
+        of `frames_per_stream` frames: every (stream, frame) once, equal
+        results, launches per batch, frames/s of both (median of `repeats`)
+    These are the collectives' cost at one rank. `phase_train`'s CLI runs
+    (`cli train`) also run over the mesh, through `train.loop.train_model`.
+    Returns the record."""
+    import torch.distributed as dist
+
+    from unet_tpu_torch import parallel
+    from unet_tpu_torch.pipeline import presets, stages
+    from unet_tpu_torch.serve import MultiStreamServer
+
+    def sized(cfg):
+        return cfg if model_size is None else cfg.replace_in(
+            "preprocess", model_size=(model_size, model_size))
+
+    mesh = parallel.make_mesh(device=device)
+    rec = dict(world_size=dist.get_world_size(), backend=str(dist.get_backend()),
+               mesh_shape=list(mesh.shape), steps={})
+    _log(f"mesh: {mesh.shape} over {rec['world_size']} rank(s), backend {rec['backend']}, "
+         f"device {mesh.device}")
+
+    # -- the sharded inspection step against build_step
+    model, model16 = seeded_nested_unet(), seeded_nested_unet(dtype=torch.bfloat16)
+    two = sized(presets.two_stage())
+    t = time.time()
+    qcfg = stages.calibrate_int8(model16, two, [synthetic_frames(b, H, W, seed=31)],
+                                 device=device)
+    _log(f"mesh: calibrate_int8 in {time.time() - t:.1f} s")
+    frames = torch.from_numpy(synthetic_frames(b, H, W, seed=32)).to(device)
+    prev = torch.from_numpy(synthetic_frames(1, H, W, seed=33)).to(device)
+    for path, m, cfg, expect_path in (
+            ("two_stage", model, two.replace_in("inspect", quality_stats=True), "two_stage"),
+            ("two_stage_int8", model16, qcfg, "two_stage_int8")):
+        bare = stages.build_step(m, cfg, device=device)
+        sharded = parallel.shard_pipeline_step(bare, mesh)
+        want, n_bare = _drive(lambda f: bare(f, prev), frames, expect[expect_path],
+                              f"{path} without a mesh, b={b}")
+        got, n_mesh = _drive(lambda f: sharded(f, prev), frames, expect[expect_path],
+                             f"{path} over the mesh, b={b}")
+        _check_outputs(got, b, H, W, f"{path} over the mesh")
+        gl, wl = _leaves(got), _leaves(want)
+        if set(gl) != set(wl):
+            raise AssertionError(f"{path}: mesh outputs {sorted(gl)} vs {sorted(wl)}")
+        for k in wl:
+            if not torch.equal(gl[k], wl[k]):
+                raise AssertionError(f"{path}: {k} differs between the mesh and the bare step")
+        bare_ms, mesh_ms = [], []
+        for _ in range(reps):
+            bare_ms.append(_time_step(lambda f: bare(f, prev), frames, reps=3))
+            mesh_ms.append(_time_step(lambda f: sharded(f, prev), frames, reps=3))
+        rec["steps"][path] = dict(launches=n_mesh, fields=sorted(wl),
+                                  bare_ms=float(np.median(bare_ms)),
+                                  mesh_ms=float(np.median(mesh_ms)), bare_ms_runs=bare_ms,
+                                  mesh_ms_runs=mesh_ms)
+        _log(f"mesh {path} b={b}: {len(wl)} output tensors bit for bit with the bare step "
+             f"(quality {'on' if cfg.inspect.quality_stats else 'off'}); launches {n_mesh}; "
+             f"{rec['steps'][path]['mesh_ms']:.3f} ms/batch over the mesh vs "
+             f"{rec['steps'][path]['bare_ms']:.3f} bare (median of {reps}, in turns) [{card}]")
+
+    # -- the train step over the mesh against the step without one, with
+    # deterministic algorithms: by default the card's backward does not
+    # repeat itself (cuDNN's weight gradients and the upsample's atomics)
+    images, labels = _train_batch(train_b, train_size, seed=91)
+    with _deterministic():
+        a = _mesh_train_run(mesh, images, labels, device)
+        n = _mesh_train_run(None, images, labels, device)
+    r1, r2 = (_mesh_train_run(None, images, labels, device) for _ in range(2))
+    repeat = max(float((g - w).abs().max()) for g, w in zip(r1["grads"], r2["grads"]))
+    del r1, r2
+    if a["metrics"] != n["metrics"]:
+        raise AssertionError(f"mesh train step metrics {a['metrics']} vs {n['metrics']}")
+    for i, (g, w) in enumerate(zip(a["grads"], n["grads"])):
+        if not torch.equal(g, w):
+            raise AssertionError(f"mesh train step: gradient {i} differs")
+    for k in n["state"]:
+        if not torch.equal(a["state"][k], n["state"][k]):
+            raise AssertionError(f"mesh train step: {k} differs after the update")
+    t_mesh, t_bare = [], []
+    images, labels = _train_batch(time_b, train_size, seed=92)
+    runs = {}
+    for key, m in (("mesh", mesh), ("bare", None)):
+        r = _mesh_train_run(m, images, labels, device, steps=1)
+        runs[key] = (r["train_step"], r["train_state"], r["x"], r["y"])
+
+    def micro(key):
+        step, state, x, y = runs[key]
+        step(state, x, y)
+
+    for _ in range(reps):
+        for key, out in (("mesh", t_mesh), ("bare", t_bare)):
+            micro(key)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(2):
+                micro(key)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t) / 2 * 1e3)
+    rec["train"] = dict(size=train_size, b=train_b, metrics=a["metrics"],
+                        default_repeat_grad_max_abs_diff=repeat,
+                        n_tensors=len(n["state"]) + len(n["grads"]), time_b=time_b,
+                        mesh_ms=float(np.median(t_mesh)), bare_ms=float(np.median(t_bare)),
+                        mesh_ms_runs=t_mesh, bare_ms_runs=t_bare)
+    _log(f"mesh train step ({train_size}^2, b={train_b}, 3class_advanced, accumulation 2, "
+         f"deterministic algorithms; without them the bare step repeated itself within "
+         f"{repeat:.3e} on the gradient): two micro-steps bit for bit with make_train_step (loss "
+         f"{a['metrics'][0]['loss']:.7f}, {len(n['grads'])} gradients, {len(n['state'])} "
+         f"parameters and statistics after the update); ms per micro-step at b={time_b}: "
+         f"{rec['train']['mesh_ms']:.3f} over the mesh vs {rec['train']['bare_ms']:.3f} bare "
+         f"(median of {reps}, in turns) [{card}]")
+    del runs
+
+    # -- the server over the mesh against the server without one
+    cfg = presets.wrap_uniformity()
+    pool = wrap_scenes(8, H, W, seed=51)
+    lists = [[pool[(s + i) % 8] for i in range(frames_per_stream)] for s in range(streams)]
+    servers = {"mesh": MultiStreamServer(ColourClassModel(), cfg, mesh=mesh, device=device),
+               "bare": MultiStreamServer(ColourClassModel(), cfg, device=device)}
+    results, fps, counts = {}, {k: [] for k in servers}, {}
+    for key, server in servers.items():
+        server.serve([FrameListSource(f[:1]) for f in lists], lambda r: None)
+    for _ in range(repeats):
+        for key, server in servers.items():
+            got = []
+            _zero_counts()
+            t = time.perf_counter()
+            summary = server.serve([FrameListSource(f) for f in lists], got.append)
+            torch.cuda.synchronize()
+            fps[key].append(len(got) / (time.perf_counter() - t))
+            counts[key] = {k: v / summary["batches"] for k, v in _read_counts().items() if v}
+            results[key] = {(r.stream_id, r.frame_id): (r.cable_px, r.tape_px, r.burr_px,
+                                                        r.dc_px, r.dt_px) for r in got}
+            if len(results[key]) != len(got) or sorted(results[key]) != [
+                    (s, i + 1) for s in range(streams) for i in range(frames_per_stream)]:
+                raise AssertionError(f"{key} server: frames lost or repeated")
+    if results["mesh"] != results["bare"]:
+        raise AssertionError("the mesh server's results differ from the bare server's")
+    if counts["mesh"] != counts["bare"]:
+        raise AssertionError(f"server launches per batch: mesh {counts['mesh']} vs bare "
+                             f"{counts['bare']}")
+    rec["server"] = dict(streams=streams, frames=streams * frames_per_stream,
+                         launches_per_batch=counts["mesh"],
+                         mesh_frames_per_s=float(np.median(fps["mesh"])),
+                         bare_frames_per_s=float(np.median(fps["bare"])),
+                         mesh_runs=fps["mesh"], bare_runs=fps["bare"])
+    _log(f"mesh server (wrap_uniformity, colour->class model, {streams} streams x "
+         f"{frames_per_stream} frames): every (stream, frame) once and equal to the bare "
+         f"server's; launches per batch {counts['mesh']}; "
+         f"{rec['server']['mesh_frames_per_s']:.2f} frames/s over the mesh vs "
+         f"{rec['server']['bare_frames_per_s']:.2f} bare (median of {repeats}, host clock) "
+         f"[{card}]")
+    return rec
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """torch's deterministic algorithms (and cuDNN's), restored on exit."""
+    was = (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic,
+           torch.backends.cudnn.benchmark, os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was[0])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = was[1], was[2]
+        if was[3] is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = was[3]
+
+
+
 def _diameters_close(got: dict, want, what: str) -> dict:
     """An artifact's diameters against the live step's: float fields within
     rtol 1e-5 (tests/test_export.py's gate), integer fields equal, a cable
@@ -3073,6 +3322,12 @@ def main() -> int:
     for name, r in export["pipelines"].items():
         engine_counts[f"export_{name}"] = r["runs"][8]["launches"]
 
+    # -- the device mesh at world size 1: the sharded step, train step and
+    # server against the same work without a mesh
+    mesh = phase_mesh(expect, H, W, card=card)
+    for name, r in mesh["steps"].items():
+        engine_counts[f"mesh_{name}"] = r["launches"]
+
     # the mma.sync kernel has no main-path launch (conv0_0.conv1 takes the c3
     # kernel): its entry holds its time forced at that site, the c3 kernel's
     # yardstick
@@ -3128,7 +3383,7 @@ def main() -> int:
         "presets_b8": pre_timings, "preset_checks": pre_checks,
         "engine": engine, "inspect_engine": gate_engine, "config_runs": config_runs,
         "models_b8": mod_timings, "model_checks": mod_checks, "device_trace": trace,
-        "train": train, "export": export,
+        "train": train, "export": export, "mesh": mesh,
         "card": card, "seconds": round(time.time() - t_start, 1)}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

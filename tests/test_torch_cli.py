@@ -127,8 +127,9 @@ def test_int8_short_directory_holds_out_agreement_frames(tmp_path, capsys):
 
 
 def test_what_is_not_ported_names_its_item(data, tmp_path):
-    """What is not ported names its ROADMAP item; what A12, A13, A14 and
-    A15's export ported now runs: a pipeline YAML (`--config`), `--arch
+    """What is not ported names its ROADMAP item (an orbax directory names
+    convert_orbax.py, which reads it); what A12, A13, A14 and A15's export
+    ported now runs: a pipeline YAML (`--config`), `--arch
     simple_unet` and a ResNet50-NestedUNet .pth, each writing a row a frame;
     `train` and `evaluate` over a labelled split; `tools` (audit,
     summarize-checkpoints) and `export` of the trained model."""
@@ -141,7 +142,7 @@ def test_what_is_not_ported_names_its_item(data, tmp_path):
                  "--image-size", "32", "--output", str(tmp_path / "e"), "--device", "cpu"]) == 0
     assert json.loads((tmp_path / "e" / "metrics.json").read_text())["miou"] >= 0
     for argv, item in (
-            (base + ["--model", str(tmp_path)], "A15"),
+            (base + ["--model", str(tmp_path)], "convert_orbax.py"),
             (["bench", "--config", "2"], "A5")):
         with pytest.raises(SystemExit, match=item):
             main(argv)

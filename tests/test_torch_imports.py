@@ -1,5 +1,6 @@
 """The port stands alone: no module of unet_tpu_torch, and not chip_smoke.py,
-imports jax, flax or the JAX package; importing builds nothing; and
+imports jax, flax or the JAX package, nor convert_orbax.py (which does);
+importing builds nothing; and
 chip_smoke.py fails, printing no result, without a card or without the
 rest of the repository."""
 import os
@@ -34,7 +35,8 @@ def test_every_module_imports_without_jax():
               "core.checkpoint", "train.loop", "train.recipes", "tools.evaluate",
               "data.labelme", "tools.frames_extract", "tools.dataset_audit", "tools.calibrate",
               "tools.annotate", "tools.hard_negatives", "tools.visualize_dataset",
-              "tools.interactive", "export", "export.aot"):
+              "tools.interactive", "export", "export.aot", "parallel", "parallel.mesh",
+              "parallel.multihost"):
         assert f"unet_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -43,6 +45,7 @@ def test_every_module_imports_without_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'unet_tpu'))\n"
         "assert not bad, bad\n"
+        "assert 'convert_orbax' not in sys.modules, 'the port imports convert_orbax'\n"
         "lazy = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('cv2', 'yaml', 'paho', 'harvesters'))\n"
         "assert not lazy, lazy\n"

@@ -124,8 +124,14 @@ def test_multistream_sink_failure_and_max_batches_reap_readers(servers):
 
 
 def test_multistream_refuses_a_mesh_and_cuda_without_a_card():
-    with pytest.raises(NotImplementedError, match="A15"):
-        MultiStreamServer(ColourClassModel(), _cfg(presets), mesh=object(), device="cpu")
+    """A mesh whose data axis does not divide the streams raises (before any
+    collective); a "cuda" server without a card raises."""
+    from unet_tpu_torch.parallel import Mesh
+
+    two = Mesh(device_mesh=None, device=torch.device("cpu"), ranks=(0, 1), shape=(2, 1))
+    server = MultiStreamServer(ColourClassModel(), _cfg(presets), mesh=two, device="cpu")
+    with pytest.raises(ValueError, match="3 streams do not divide over the data axis of 2"):
+        server.serve([FakeSource(0, 2), FakeSource(1, 2), FakeSource(2, 2)], lambda r: None)
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -23,8 +23,10 @@ checkpoint of `train` (`best.pth`, `last.pth`) with its family read from
 its sidecar.
 
 `bench` is not ported yet (ROADMAP A5): it names its item and exits
-non-zero. Of ROADMAP A15, several devices and the JAX package's orbax
-checkpoint directories are not ported either.
+non-zero. `train` runs over every rank that `torchrun --nproc-per-node N`
+starts (parallel.mesh's data axis); spatial sharding is ROADMAP A15c. An
+orbax checkpoint directory of the JAX package is read after
+`convert_orbax.py` has turned it into a .pth.
 
 Every command runs on the card (`--device cuda`, the default) unless asked
 for the CPU. Run `python -m unet_tpu_torch.cli <cmd> --help`.
@@ -101,8 +103,10 @@ def load_model(model_path: Optional[str], arch: str, dtype_str: str, fallback_cl
 
     if model_path:
         if Path(model_path).is_dir():
-            raise SystemExit(f"--model {model_path}: orbax checkpoint directories are "
-                             f"ROADMAP A15; pass a reference .pth")
+            raise SystemExit(f"--model {model_path}: an orbax checkpoint directory of the JAX "
+                             f"package; convert it with convert_orbax.py (python "
+                             f"convert_orbax.py {model_path} OUT.pth, where the JAX package "
+                             f"runs) and pass the .pth")
         sd = convert.load_pth(model_path)
         kind = read_meta(model_path).get("config", {}).get("arch") or \
             convert.detect_model_kind(sd)
@@ -271,12 +275,21 @@ def cmd_serve(args) -> int:
 
 
 def cmd_train(args) -> int:
-    """A training recipe (train.recipes) on --device."""
+    """A training recipe (train.recipes) on --device, over every rank of the
+    run: `torchrun --nproc-per-node N -m unet_tpu_torch.cli train ...`
+    trains over N devices, one process each (the JAX CLI uses all devices
+    of its one process). A --n-devices other than the world size refuses."""
+    from unet_tpu_torch.parallel import multihost
     from unet_tpu_torch.train.recipes import run_recipe
 
-    if args.n_devices is not None and args.n_devices > 1:
-        raise SystemExit(f"--n-devices {args.n_devices}: training on several devices is not "
-                         f"ported to unet_tpu_torch yet, ROADMAP A15")
+    if args.n_devices is not None:
+        backend = "gloo" if args.device == "cpu" else "cpu:gloo,cuda:nccl"
+        _, world = multihost.initialize(backend=backend)
+        if args.n_devices != world:
+            raise SystemExit(
+                f"--n-devices {args.n_devices}: this run's world size is {world} (one process "
+                f"per device); launch torchrun --nproc-per-node {args.n_devices} -m "
+                f"unet_tpu_torch.cli train ...")
     return run_recipe(args)
 
 
@@ -572,7 +585,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="checkpoint dir of an earlier run; its last.pth goes on")
     pt.add_argument("--seed", type=int, default=42)
     pt.add_argument("--n-devices", type=int, default=None,
-                    help="one device only; more is ROADMAP A15")
+                    help="the world size expected (torchrun --nproc-per-node); "
+                         "the run refuses another")
     pt.add_argument("--encoder", default="mobilenet_v3_small")
     pt.add_argument("--train-dtype", default="bfloat16", choices=list(_DTYPES),
                     help="compute dtype for training (params stay float32); "

@@ -9,7 +9,10 @@ would)}; `{ckpt_dir}/{name}.meta.json` holds {"epoch", "best_miou",
 "config"}, as the JAX package writes it. Its "model" entry is the
 reference's container, so `cli infer`/`cli evaluate --model {name}.pth`
 (models.convert.load_pth) and the JAX package's .pth loader read the
-weights. Reading the JAX package's orbax directories is ROADMAP A15.
+weights. The JAX package's orbax directories are read through
+`convert_orbax.py` at the repository's root, which runs where the JAX
+package runs and writes such a .pth with its sidecar: orbax, tensorstore
+and its zstd-compressed nodes are not on the card's machine.
 """
 from __future__ import annotations
 

@@ -13,6 +13,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.func import functional_call
 
+from unet_tpu_torch.parallel.mesh import all_sum, data_size
+
 
 class ComputeDtype(nn.Module):
     """A model whose `dtype` is its compute type, as flax's `dtype` is: the
@@ -87,7 +89,10 @@ class BatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d in eval mode. In train mode flax's BatchNorm
     (flax.linen.BatchNorm with use_running_average=False and its default
     use_fast_variance=True): in float32 whatever the input's type, the
-    batch's mean and the variance max(0, E[x^2] - E[x]^2); the output
+    batch's mean and the variance max(0, E[x^2] - E[x]^2), from the sums
+    of x and x^2 over the global batch under a mesh (parallel.mesh.all_sum,
+    the identity without one; a one-rank mesh computes what no mesh
+    does); the output
     (x - mean) * (rsqrt(var + eps) * weight) + bias, with autograd through
     that formula; the running statistics move to the same mean and variance
     at `momentum` (torch's convention: 0.1 is flax's 0.9). Where a channel's
@@ -100,10 +105,14 @@ class BatchNorm2d(nn.BatchNorm2d):
         if not self.training:
             return super().forward(x)
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        # squares as jax's lax.square, whose derivative 2 * x * g is one
-        # product (x * x's two paths add up in another order)
-        var = torch.clamp(torch.square(xf).mean(dim=(0, 2, 3)) - torch.square(mean), min=0.0)
+        # sums of x and x^2, over the global batch under a mesh; squares as
+        # jax's lax.square, whose derivative 2 * x * g is one product (x *
+        # x's two paths add up in another order)
+        sums = all_sum(torch.stack([xf.sum(dim=(0, 2, 3)),
+                                    torch.square(xf).sum(dim=(0, 2, 3))]))
+        n = float(xf.numel() // xf.shape[1] * data_size())
+        mean = sums[0] / n
+        var = torch.clamp(sums[1] / n - torch.square(mean), min=0.0)
         if self.track_running_stats and not _recomputing():
             with torch.no_grad():
                 self.num_batches_tracked.add_(1)

@@ -7,6 +7,10 @@ and their combinations, as functions.
     (no host sync in the train step)
   * DiceLoss's fallback when no class is valid ("average all non-bg") is a
     select, as in the JAX package, so the loss has no data-dependent branch
+  * every sum over the batch is a sum over the global batch under a mesh
+    (parallel.mesh.all_sum; the identity without one): a ratio of such sums
+    and Dice's fallback are the global batch's, as GSPMD gives the JAX
+    package's jitted losses
 """
 from __future__ import annotations
 
@@ -14,6 +18,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from unet_tpu_torch.parallel.mesh import all_sum, data_size
 
 
 def _flatten_probs(logits: torch.Tensor, labels: torch.Tensor):
@@ -47,14 +53,19 @@ def dice_loss(logits: torch.Tensor, labels: torch.Tensor, smooth: float = 1e-5,
         nonbg[:, 0] = False
     if skip_empty:
         valid = valid & (t.sum(2) > 0)
-    sel = torch.where(valid.sum() == 0, nonbg, valid)   # the fallback (losses.py:69-73)
+    # the fallback (losses.py:69-73), where no sample of the global batch
+    # has a valid class
+    sel = torch.where(all_sum(valid.sum()) == 0, nonbg, valid)
 
     zero = torch.zeros((), dtype=dice.dtype, device=dice.device)
     if class_weights is not None:
         w = torch.where(sel, _weights(class_weights, dice)[None, :].expand(n, c), zero)
-        mean = (dice * w).sum() / (w.sum() + 1e-6)
+        s = all_sum(torch.stack([(dice * w).sum(), w.sum()]))
+        mean = s[0] / (s[1] + 1e-6)
     else:
-        mean = torch.where(sel, dice, zero).sum() / sel.sum().clamp(min=1)
+        s = all_sum(torch.stack([torch.where(sel, dice, zero).sum(),
+                                 sel.sum().to(dice.dtype)]))
+        mean = s[0] / s[1].clamp(min=1)
     return 1.0 - mean
 
 
@@ -70,7 +81,9 @@ def focal_loss(logits: torch.Tensor, labels: torch.Tensor, gamma: float = 2.0,
         w = w * _weights(alpha, logp)[safe]
     loss = -w * logp_t
     mask = labels != ignore_index
-    return torch.where(mask, loss, torch.zeros_like(loss)).sum() / mask.sum().clamp(min=1)
+    s = all_sum(torch.stack([torch.where(mask, loss, torch.zeros_like(loss)).sum(),
+                             mask.sum().to(loss.dtype)]))
+    return s[0] / s[1].clamp(min=1)
 
 
 def tversky_loss(logits: torch.Tensor, labels: torch.Tensor, alpha: float = 0.3,
@@ -85,7 +98,7 @@ def tversky_loss(logits: torch.Tensor, labels: torch.Tensor, alpha: float = 0.3,
     tv = (tp + smooth) / (tp + alpha * fn + beta * fp + smooth)
     if ignore_bg:
         tv = tv[:, 1:]
-    return 1.0 - tv.mean()
+    return 1.0 - all_sum(tv.sum()) / float(tv.numel() * data_size())
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -95,9 +108,10 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     logp = F.log_softmax(logits, dim=1)
     nll = -logp.gather(1, labels[:, None])[:, 0]
     if class_weights is None:
-        return nll.mean()
+        return all_sum(nll.sum()) / float(nll.numel() * data_size())
     w = _weights(class_weights, logp)[labels]
-    return (nll * w).sum() / w.sum()
+    s = all_sum(torch.stack([(nll * w).sum(), w.sum()]))
+    return s[0] / s[1]
 
 
 def combined_loss(logits, labels, weight_ce: float = 1.0, weight_dice: float = 1.0,

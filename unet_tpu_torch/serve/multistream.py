@@ -7,7 +7,12 @@ assembles batches with one fixed slot per stream, runs the port's step
 as a `StreamResult`. With `geometry.enabled` (the wrap-uniformity presets)
 each result carries the frame's cable and tape diameters in pixels.
 
-Not ported: serving over a device mesh (`mesh`, ROADMAP A15).
+Over a device mesh (`mesh`, parallel.mesh) every rank constructs the
+server and calls `serve` with the same sources: rank 0 runs the readers,
+assembles each batch and broadcasts its frames; every rank runs its slice
+of the sharded step (`parallel.shard_pipeline_step`), whose outputs every
+rank receives; rank 0 hands out the results, and a broadcast stop ends the
+other ranks' loops. The number of streams must divide over the data axis.
 """
 from __future__ import annotations
 
@@ -20,7 +25,9 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from unet_tpu_torch import parallel
 from unet_tpu_torch.pipeline import stages
 from unet_tpu_torch.pipeline.config import PipelineCfg
 
@@ -45,18 +52,20 @@ class MultiStreamServer:
     stream delays its slot by at most `starvation_timeout` seconds per
     batch; it never stalls the batch. The step runs on `device` ("cuda"
     unless the caller asks for the CPU; without a card a "cuda" server
-    raises, as `build_step` does)."""
+    raises, as `build_step` does), or over `mesh` on its ranks' devices."""
 
     def __init__(self, model: torch.nn.Module, cfg: PipelineCfg,
                  mesh=None, return_class_map: bool = False,
                  queue_depth: int = 8, starvation_timeout: float = 0.02,
                  max_in_flight: int = 2, device: Union[str, torch.device] = "cuda"):
-        if mesh is not None:
-            raise NotImplementedError("MultiStreamServer(mesh=...): serving over a "
-                                      "device mesh is ROADMAP A15")
         self.cfg = cfg
+        self.mesh = mesh
         self.return_class_map = return_class_map
-        self.step = stages.build_step(model, cfg, device=device)
+        if mesh is None:
+            self.step = stages.build_step(model, cfg, device=device)
+        else:
+            self.step = parallel.shard_pipeline_step(
+                stages.build_step(model, cfg, device=mesh.device), mesh)
         self.queue_depth = queue_depth
         self.starvation_timeout = starvation_timeout
         # dispatched but unconsumed batches: the step queues its work on the
@@ -93,6 +102,12 @@ class MultiStreamServer:
         yielding (frame_id, (H, W, 3) uint8 BGR frame). Returns summary
         stats."""
         n = len(sources)
+        if self.mesh is not None:
+            if n % self.mesh.size:
+                raise ValueError(f"{n} streams do not divide over the data axis of "
+                                 f"{self.mesh.size} ranks")
+            if self.mesh.rank != 0:
+                return self._follow()
         self._stop.clear()  # serve() is reusable (e.g. warmup then measure)
         self._queues = [queue.Queue(maxsize=self.queue_depth) for _ in range(n)]
         self._threads = [threading.Thread(target=self._reader, args=(i, s),
@@ -156,7 +171,7 @@ class MultiStreamServer:
                          else (last[i] if last[i] is not None
                                else np.zeros_like(template))
                          for i in range(n)]
-                out = self.step(np.stack(slots))
+                out = self.step(self._send(np.stack(slots)))
                 fresh_meta = []
                 for i in fresh:
                     fid, frame = pending[i]
@@ -174,11 +189,46 @@ class MultiStreamServer:
                 consume(*in_flight.popleft())
         finally:
             # always unwedge and reap the readers, also when on_result
-            # raised or max_batches cut the loop short mid-stream
+            # raised or max_batches cut the loop short mid-stream; end the
+            # other ranks' loops
             self._stop.set()
             for t in self._threads:
                 t.join(timeout=10.0)
+            if self.mesh is not None:
+                self._header(0, (0, 0, 0))
         dt = time.time() - t0
         return {"frames": processed, "batches": batches,
                 "elapsed_sec": round(dt, 3),
                 "fps": round(processed / dt, 2) if dt > 0 else 0.0}
+
+    # -- over a mesh: rank 0 sends each batch, the other ranks follow
+
+    def _header(self, go: int, hw3) -> torch.Tensor:
+        """Broadcast (go, B, H, W) from rank 0; go 0 ends the loops."""
+        hdr = torch.tensor([go, *hw3], dtype=torch.int64, device=self.mesh.device)
+        dist.broadcast(hdr, src=self.mesh.ranks[0], group=self.mesh.group)
+        return hdr
+
+    def _send(self, batch: np.ndarray):
+        """Rank 0's batch, broadcast to every rank of the mesh."""
+        if self.mesh is None:
+            return batch
+        self._header(1, batch.shape[:3])
+        frames = torch.from_numpy(batch).to(self.mesh.device)
+        dist.broadcast(frames, src=self.mesh.ranks[0], group=self.mesh.group)
+        return frames
+
+    def _follow(self) -> Dict[str, Any]:
+        """A rank other than 0: run the sharded step on every batch rank 0
+        broadcasts, until it broadcasts the stop."""
+        t0, batches = time.time(), 0
+        while True:
+            go, b, h, w = self._header(0, (0, 0, 0)).tolist()
+            if not go:
+                break
+            frames = torch.empty((b, h, w, 3), dtype=torch.uint8, device=self.mesh.device)
+            dist.broadcast(frames, src=self.mesh.ranks[0], group=self.mesh.group)
+            self.step(frames)
+            batches += 1
+        return {"frames": 0, "batches": batches, "elapsed_sec": round(time.time() - t0, 3),
+                "fps": 0.0}

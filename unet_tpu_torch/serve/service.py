@@ -170,13 +170,18 @@ def serve_streams(model: torch.nn.Module, cfg, named_sources: Sequence[Tuple[str
                   mesh=None, max_batches: Optional[int] = None,
                   max_in_flight: int = 2,
                   device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
-    """Serve all streams to completion on `device`; returns the aggregate
-    summary (also written to <output>/serve_summary.json)."""
+    """Serve all streams to completion on `device`, or over `mesh` (every
+    rank calls this with the same sources; rank 0 writes the outputs);
+    returns the aggregate summary (also written to
+    <output>/serve_summary.json), a follower rank its own loop's stats."""
     out = Path(output_dir)
-    out.mkdir(parents=True, exist_ok=True)
+    lead = mesh is None or mesh.rank == 0
     wrap = bool(cfg.geometry.enabled)
-    writers = [StreamWriter(i, name, out, burr_event_px, wrap)
-               for i, (name, _) in enumerate(named_sources)]
+    writers = []
+    if lead:
+        out.mkdir(parents=True, exist_ok=True)
+        writers = [StreamWriter(i, name, out, burr_event_px, wrap)
+                   for i, (name, _) in enumerate(named_sources)]
 
     def on_result(r: StreamResult) -> None:
         writers[r.stream_id].on_result(r)
@@ -185,6 +190,8 @@ def serve_streams(model: torch.nn.Module, cfg, named_sources: Sequence[Tuple[str
                                device=device)
     stats = server.serve([s for _, s in named_sources], on_result,
                          max_batches=max_batches)
+    if not lead:
+        return stats
     summary = {"streams": [w.close() for w in writers], **stats}
     (out / "serve_summary.json").write_text(json.dumps(summary, indent=2))
     return summary

@@ -1,5 +1,6 @@
 """The epoch loop of the port (counterpart of unet_tpu/train/loop.py:26-179):
-train steps, eval, checkpoints, early stop, on one device.
+train steps, eval, checkpoints, early stop, over the mesh (one device is a
+1x1 mesh, as in the JAX package).
 
 As the JAX package's loop: the schedule's length defaults to the run's
 micro-steps; the eval pads a ragged last batch to the batch size with
@@ -8,7 +9,19 @@ label == num_classes, which the confusion matrix drops; `best`, periodic
 (`training_history.json`), top-K worst samples (`worst_samples.json`),
 target mIoU and early stop. A resume restores `last` and the data's host
 generators, so that it goes on as the unbroken run would have.
-`n_spatial > 1` (spatial sharding) and more than one device are ROADMAP A15.
+
+Over W ranks (`torchrun --nproc-per-node W`, parallel.mesh) the data axis
+is the largest divisor of the batch size that is at most W (ranks beyond
+it idle); each rank loads only its slice of every train batch
+(parallel.multihost.ProcessShardedLoader), and the steps are those of the
+global batch, so that the logged losses and mIoU, early stop and the
+target decide the same on every rank. The eval loads each global batch,
+pads it, and runs its slice. Rank 0 writes the checkpoints, the history
+and `worst_samples.json`; the others wait at a barrier. With augmentation
+off the run equals the one-device run; with it on, each rank draws its
+slice's augmentation from its own copy of the generator, in another order
+than one process would. `n_spatial > 1` (spatial sharding) is ROADMAP
+A15c.
 """
 from __future__ import annotations
 
@@ -20,10 +33,13 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
+from unet_tpu_torch import parallel
 from unet_tpu_torch.core.checkpoint import restore_checkpoint, save_checkpoint
 from unet_tpu_torch.ops.seg_metrics import metrics_from_confusion, print_metrics
+from unet_tpu_torch.parallel.mesh import all_gather_batch
 from unet_tpu_torch.train.monitor import EarlyStopping, SampleLossTracker, TrainingMonitor
 from unet_tpu_torch.train.trainer import (LossCfg, OptimCfg, create_train_state, flax_init,
                                           make_eval_step, make_train_step, upload)
@@ -71,15 +87,45 @@ def _generators(loader) -> Dict[str, np.random.Generator]:
     return {k: g for k, g in gens.items() if isinstance(g, np.random.Generator)}
 
 
+def train_mesh(batch_size: Optional[int], device: str) -> parallel.Mesh:
+    """The data axis of a run: every rank (torchrun's, or this process
+    alone), cut to the largest divisor of `batch_size` that is at most
+    their number (unet_tpu/train/loop.py:45-55)."""
+    mesh = parallel.make_mesh(device=device)
+    n_data = mesh.size
+    if batch_size:
+        while n_data > 1 and batch_size % n_data != 0:
+            n_data -= 1
+    if n_data == mesh.size:
+        return mesh
+    return parallel.make_mesh(n_data=n_data, devices=mesh.ranks[:n_data], device=device)
+
+
+def _to_step(images: torch.Tensor, labels: torch.Tensor):
+    """A (B, H, W, 3) image and (B, H, W) label batch as the steps take it."""
+    return images.float().permute(0, 3, 1, 2).contiguous(), labels.long()
+
+
 def train_model(model: nn.Module, train_loader, val_loader, cfg: TrainRunCfg,
                 resume: Optional[str] = None, device: str = "cuda") -> Dict[str, Any]:
-    """Run the whole training on `device`; returns {best_miou, epochs_run,
-    state, final_miou}. The model starts from flax's initialisation drawn
-    with `cfg.seed` (train.trainer.flax_init), as the JAX package's
-    `create_train_state` initialises it."""
+    """Run the whole training on `device` ("cuda": this rank's card; see the
+    module's docstring for several ranks); returns {best_miou, epochs_run,
+    state, final_miou} (None and 0 on a rank outside the data axis). The
+    model starts from flax's initialisation drawn with `cfg.seed`
+    (train.trainer.flax_init), as the JAX package's `create_train_state`
+    initialises it."""
     if cfg.n_spatial > 1:
         raise SystemExit(f"n_spatial={cfg.n_spatial}: spatial sharding is not ported to "
-                         f"unet_tpu_torch yet, ROADMAP A15")
+                         f"unet_tpu_torch yet, ROADMAP A15c")
+    mesh = train_mesh(getattr(train_loader, "batch_size", None), device)
+    if not mesh.member:
+        print(f"rank {dist.get_rank()}: the batch size divides over {mesh.size} ranks; idle")
+        return {"best_miou": None, "epochs_run": 0, "state": None, "final_miou": None}
+    lead = mesh.rank == 0
+    if mesh.size > 1:
+        train_loader = parallel.multihost.ProcessShardedLoader(train_loader, mesh.rank,
+                                                               mesh.size)
+    device = mesh.device
     optim = cfg.optim
     if optim.total_steps <= 0:
         optim = replace(optim, total_steps=max(len(train_loader) * cfg.epochs, 1))
@@ -93,20 +139,23 @@ def train_model(model: nn.Module, train_loader, val_loader, cfg: TrainRunCfg,
         for k, s in meta.get("rng", {}).items():
             if k in gens:
                 gens[k].bit_generator.state = s
-        print(f"resumed from {resume} at epoch {start_epoch} (best {best_miou:.4f})")
+        if lead:
+            print(f"resumed from {resume} at epoch {start_epoch} (best {best_miou:.4f})")
 
     track = cfg.track_worst_samples > 0
-    train_step = make_train_step(cfg.loss, track_sample_loss=track)
-    eval_step = make_eval_step(cfg.num_classes)
-    monitor = TrainingMonitor(cfg.ckpt_dir)
+    train_step = make_train_step(cfg.loss, track_sample_loss=track, mesh=mesh)
+    eval_step = make_eval_step(cfg.num_classes, mesh=mesh)
+    monitor = TrainingMonitor(cfg.ckpt_dir) if lead else None
     stopper = EarlyStopping(cfg.early_stop_patience)
     tracker = SampleLossTracker(cfg.track_worst_samples) if track else None
     sample_names = getattr(getattr(train_loader, "dataset", None), "image_files", None)
     config = model_config(state.model, cfg)
 
     def save(name, epoch):
-        save_checkpoint(cfg.ckpt_dir, state, epoch=epoch, best_miou=best_miou, config=config,
-                        name=name, rng={k: g.bit_generator.state for k, g in gens.items()})
+        if lead:
+            save_checkpoint(cfg.ckpt_dir, state, epoch=epoch, best_miou=best_miou,
+                            config=config, name=name,
+                            rng={k: g.bit_generator.state for k, g in gens.items()})
 
     epochs_run = 0
     # defined even when the loop body never runs (resume past cfg.epochs)
@@ -122,12 +171,13 @@ def train_model(model: nn.Module, train_loader, val_loader, cfg: TrainRunCfg,
                 idx, images, labels = batch
             else:
                 images, labels = batch
-            im, lb = upload(images, labels, device)
-            state, metrics = train_step(state, im, lb)
+            state, metrics = train_step(state, *_to_step(*parallel.put_batch(mesh, images,
+                                                                             labels)))
             losses.append(metrics["loss"])
             gnorms.append(metrics["grad_norm"])
             if tracker is not None and idx is not None:
-                for i, l in zip(idx, metrics["sample_loss"].tolist()):
+                idx = all_gather_batch(mesh, torch.as_tensor(idx, device=device)).tolist()
+                for i, l in zip(idx, all_gather_batch(mesh, metrics["sample_loss"]).tolist()):
                     name = (sample_names[int(i)] if sample_names is not None
                             else f"sample_{int(i)}")
                     tracker.record(float(l), name)
@@ -143,34 +193,40 @@ def train_model(model: nn.Module, train_loader, val_loader, cfg: TrainRunCfg,
                 labels = np.concatenate(
                     [labels, np.full((pad,) + labels.shape[1:], cfg.num_classes, labels.dtype)],
                     axis=0)
-            cm += eval_step(state, *upload(images, labels, device))
+            cm += eval_step(state, *_to_step(*parallel.put_batch(mesh, images, labels,
+                                                                  local=False)))
         miou, precision, recall, ious = metrics_from_confusion(cm.cpu().numpy())
 
-        monitor.log_epoch(epoch, train_loss, miou, state.scheduler.get_last_lr()[0], gnorm)
-        if tracker is not None and tracker.samples:
-            (Path(cfg.ckpt_dir) / "worst_samples.json").write_text(
-                json.dumps({"epoch": epoch, "worst": tracker.worst()}, indent=2))
-        dt = time.time() - t0
-        print(f"epoch {epoch + 1}/{cfg.epochs}: loss {train_loss:.4f} "
-              f"mIoU {miou:.4f} ({dt:.1f}s)")
+        if lead:
+            monitor.log_epoch(epoch, train_loss, miou, state.scheduler.get_last_lr()[0], gnorm)
+            if tracker is not None and tracker.samples:
+                (Path(cfg.ckpt_dir) / "worst_samples.json").write_text(
+                    json.dumps({"epoch": epoch, "worst": tracker.worst()}, indent=2))
+            print(f"epoch {epoch + 1}/{cfg.epochs}: loss {train_loss:.4f} "
+                  f"mIoU {miou:.4f} ({time.time() - t0:.1f}s)")
         epochs_run += 1
 
         if miou > best_miou:
             best_miou = miou
             save("best", epoch)
-            print(f"  new best mIoU {best_miou:.4f} -> saved")
+            if lead:
+                print(f"  new best mIoU {best_miou:.4f} -> saved")
         if (epoch + 1) % cfg.save_every_epochs == 0:
             save(f"epoch_{epoch + 1}", epoch)
         save("last", epoch)
+        dist.barrier(group=mesh.group)
 
         if cfg.target_miou is not None and miou >= cfg.target_miou:
-            print(f"target mIoU {cfg.target_miou} reached; stopping")
+            if lead:
+                print(f"target mIoU {cfg.target_miou} reached; stopping")
             break
         if stopper.step(miou):
-            print(f"early stopping after {stopper.patience} stale epochs")
+            if lead:
+                print(f"early stopping after {stopper.patience} stale epochs")
             break
 
-    print_metrics(miou, precision, recall, ious)
+    if lead:
+        print_metrics(miou, precision, recall, ious)
     return {"best_miou": best_miou, "epochs_run": epochs_run, "state": state,
             "final_miou": miou}
 

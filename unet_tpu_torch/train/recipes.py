@@ -4,7 +4,7 @@
 Each recipe binds dataset construction + LossCfg/OptimCfg/TrainRunCfg with
 the exact hyperparameters of its reference script, run through the one
 train loop (train.loop) on `args.device` (the card unless the caller asks
-for the CPU).
+for the CPU), over every rank that `torchrun` started (train.loop's mesh).
 """
 from __future__ import annotations
 
@@ -38,6 +38,12 @@ def _datasets(args, image_size: int, advanced: bool, three_class: bool):
     return train, val
 
 
+def _report(result) -> None:
+    """The best mIoU, from a rank that trained (an idle rank has none)."""
+    if result["best_miou"] is not None:
+        print(f"best mIoU: {result['best_miou']:.4f}")
+
+
 def _run(args, run_cfg: TrainRunCfg, advanced: bool = True,
          three_class: bool = True, oversample: bool = False):
     from unet_tpu_torch.data.loader import make_train_val_loaders
@@ -57,7 +63,7 @@ def _run(args, run_cfg: TrainRunCfg, advanced: bool = True,
                        dtype=_train_dtype(args))
     result = train_model(model, train_loader, val_loader, run_cfg,
                          resume=args.resume, device=_device(args))
-    print(f"best mIoU: {result['best_miou']:.4f}")
+    _report(result)
     return 0
 
 
@@ -201,7 +207,7 @@ def recipe_with_monitoring(args):
                        remat=getattr(args, "remat", False))
     result = train_model(model, train_loader, val_loader, cfg,
                          resume=args.resume, device=_device(args))
-    print(f"best mIoU: {result['best_miou']:.4f}")
+    _report(result)
     return 0
 
 
@@ -237,7 +243,7 @@ def recipe_binary_patch(args):
                        remat=getattr(args, "remat", False))
     result = train_model(model, train_loader, val_loader, cfg, resume=args.resume,
                          device=_device(args))
-    print(f"best mIoU: {result['best_miou']:.4f}")
+    _report(result)
     return 0
 
 
@@ -261,7 +267,7 @@ def recipe_inspection(args):
         deep_supervision=True, dtype=_train_dtype(args))
     result = train_model(model, train_loader, val_loader, cfg, resume=args.resume,
                          device=_device(args))
-    print(f"best mIoU: {result['best_miou']:.4f}")
+    _report(result)
     return 0
 
 

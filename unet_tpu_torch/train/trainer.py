@@ -6,14 +6,17 @@ and the train and eval steps.
 optax's chain, `MultiSteps(chain(clip_by_global_norm, adamw(schedule)))`,
 becomes:
   * the schedule: optax's formulas evaluated in float32 (`build_schedule`),
-    fed to `torch.optim.AdamW` through a `LambdaLR` over a base lr of 1.0,
-    so that the lr of optimizer step n is schedule(n) exactly. torch's
+    fed to the optimizer through a `LambdaLR` over a base lr of 1.0, so
+    that the lr of optimizer step n is schedule(n) exactly. torch's
     `OneCycleLR` and `CosineAnnealingWarmRestarts` compute other formulas
-  * AdamW: torch's has optax's semantics (b1 0.9, b2 0.999, eps 1e-8
-    outside the square root, decoupled decay lr * wd * p of every
-    parameter); a parameter without a gradient gets a zero one, as in JAX
-  * clipping: optax's rule, g * max_norm / |g| only where |g| >= max_norm
-    (`clip_grad_norm_` divides by |g| + 1e-6 whenever it clips)
+  * AdamW: the port's own (`AdamW`), optax.adamw's arithmetic in optax's
+    order (torch.optim.AdamW rounds otherwise: a lerp for the first
+    moment, sqrt(v) / sqrt(bc2) for the denominator, the decay applied
+    before the step); a parameter without a gradient gets a zero one, as
+    in JAX
+  * clipping: optax's rule, (g / |g|) * max_norm only where |g| >= max_norm
+    (`clip_grad_norm_` divides by |g| + 1e-6 whenever it clips), |g| the
+    square root of the sum of each tensor's sum of squares
   * accumulation (`OptimCfg.accum_steps` > 1): the running mean of optax's
     MultiSteps, acc + (g - acc) / (n + 1), clipped and applied once every k
     micro-steps; only that update advances the schedule
@@ -28,6 +31,12 @@ backward with cuDNN's convs in full fp32 (models.blocks.fp32_convs), as
 the inference forward does; bf16 models (`NestedUNet(dtype=torch.bfloat16)`)
 keep float32 parameters and optimizer state, and the losses reduce in
 float32.
+
+Over a mesh (`mesh=`, parallel.mesh) each rank passes its slice of the
+global batch: BN statistics and the losses are the global batch's, and
+the gradients are averaged over the data axis before accumulation,
+clipping and the update, as GSPMD's all-reduce gives them to optax in the
+JAX package. `sample_loss` is per local sample.
 """
 from __future__ import annotations
 
@@ -43,6 +52,7 @@ import torch.nn as nn
 from unet_tpu_torch.models import losses as L
 from unet_tpu_torch.models.blocks import fp32_convs
 from unet_tpu_torch.ops import seg_metrics
+from unet_tpu_torch.parallel import mesh as _mesh
 
 
 @dataclass(frozen=True)
@@ -160,26 +170,96 @@ def build_schedule(cfg: OptimCfg) -> Callable[[int], float]:
     raise ValueError(cfg.schedule)
 
 
+class AdamW(torch.optim.Optimizer):
+    """optax.adamw (unet_tpu/train/trainer.py:100-107) in optax's arithmetic,
+    one float32 rounding after each of its operations:
+
+        mu = (1 - b1) * g + b1 * mu;  nu = (1 - b2) * g^2 + b2 * nu
+        u = (mu / (1 - b1^n)) / (sqrt(nu / (1 - b2^n)) + eps) + wd * p
+        p = p + (-lr) * u
+
+    with n the update's count and b^n float32 powers on the host, which
+    needs no device sync. The state keeps torch.optim.AdamW's names
+    (`step`, a float32 CPU tensor, `exp_avg`, `exp_avg_sq`), so that an
+    AdamW state dict loads."""
+
+    def __init__(self, params, lr: float = 1e-3, betas: Tuple[float, float] = (0.9, 0.999),
+                 eps: float = 1e-8, weight_decay: float = 1e-4):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            states = [self.state[p] for p in params]
+            for p, st in zip(params, states):
+                if not st:
+                    st["step"] = torch.tensor(0.0, dtype=torch.float32)
+                    st["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                    st["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            grads = [p.grad for p in params]
+            mus = [st["exp_avg"] for st in states]
+            nus = [st["exp_avg_sq"] for st in states]
+            b1, b2 = group["betas"]
+            torch._foreach_mul_(mus, b1)
+            torch._foreach_add_(mus, torch._foreach_mul(grads, 1 - b1))
+            torch._foreach_mul_(nus, b2)
+            sq = torch._foreach_mul(grads, grads)
+            torch._foreach_mul_(sq, 1 - b2)
+            torch._foreach_add_(nus, sq)
+            for st in states:
+                st["step"] += 1
+            n = np.float32(states[0]["step"])
+            bc1 = float(np.float32(1) - np.float32(b1) ** n)
+            bc2 = float(np.float32(1) - np.float32(b2) ** n)
+            u = torch._foreach_div(mus, bc1)
+            den = _sqrt(torch._foreach_div(nus, bc2))
+            torch._foreach_add_(den, group["eps"])
+            torch._foreach_div_(u, den)
+            if group["weight_decay"]:
+                torch._foreach_add_(u, torch._foreach_mul(params, group["weight_decay"]))
+            torch._foreach_mul_(u, -group["lr"])
+            torch._foreach_add_(params, u)
+
+
+def _sqrt(ts: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Correctly rounded float32 square roots, as XLA's: CUDA's sqrt is;
+    the CPU's vectorised one is not always, so there it is taken in float64
+    (exact once rounded to float32)."""
+    if ts[0].is_cuda:
+        torch._foreach_sqrt_(ts)
+        return ts
+    return [torch.sqrt(t.double()).float() for t in ts]
+
+
 def build_optimizer(params, cfg: OptimCfg):
-    """(AdamW, LambdaLR) over `params`: optax.adamw's semantics at the lr of
+    """(AdamW, LambdaLR) over `params`: optax.adamw at the lr of
     `build_schedule(cfg)`. Clipping and accumulation are `TrainState`'s."""
-    opt = torch.optim.AdamW(params, lr=1.0, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=cfg.weight_decay)
+    opt = AdamW(params, lr=1.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=cfg.weight_decay)
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, build_schedule(cfg))
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """optax.global_norm: the square root of the sum of every element's
-    square, as a device scalar."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
+    """optax.global_norm: the square root of the sum, in order, of each
+    tensor's sum of squares, as a device scalar."""
+    total = None
+    for t in tensors:
+        s = torch.square(t).sum()
+        total = s if total is None else total + s
+    return _sqrt([total])[0]
 
 
 def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> None:
-    """optax.clip_by_global_norm in place: g * max_norm / |g| where |g| >=
+    """optax.clip_by_global_norm in place: (g / |g|) * max_norm where |g| >=
     max_norm, g as it is below (no host sync)."""
     norm = global_norm(grads)
-    factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-    torch._foreach_mul_(grads, factor)
+    clipped = torch._foreach_div(grads, norm)
+    torch._foreach_mul_(clipped, max_norm)
+    keep = norm < max_norm
+    for g, c in zip(grads, clipped):
+        g.copy_(torch.where(keep, g, c))
 
 
 # ---------------------------------------------------------------------------
@@ -317,14 +397,16 @@ def make_loss_fn(cfg: LossCfg):
     return loss_fn
 
 
-def make_train_step(loss_cfg: LossCfg, track_sample_loss: bool = False):
+def make_train_step(loss_cfg: LossCfg, track_sample_loss: bool = False, mesh=None):
     """train_step(state, images, labels) -> (state, metrics): one micro-step
     on (B, 3, H, W) float32 images and (B, H, W) int64 labels on the
     state's device. metrics: "loss", "grad_norm" (of this micro-step's
     gradients, before accumulation and clipping), the loss's components
     under the JAX package's names ("focal", "tversky", "dice", "extra" in
     order) and, with `track_sample_loss`, "sample_loss" (B,), the
-    per-sample cross-entropy of the main output."""
+    per-sample cross-entropy of the main output. With `mesh` the step runs
+    over its data axis (`parallel.shard_train_step`): B is this rank's
+    slice, and everything but "sample_loss" is the global batch's."""
     loss_fn = make_loss_fn(loss_cfg)
 
     def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor):
@@ -336,6 +418,7 @@ def make_train_step(loss_cfg: LossCfg, track_sample_loss: bool = False):
             total, comps = loss_fn(outs, labels)
             total.backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in state.params]
+        _mesh.mean_grads_(grads)
         metrics: Dict[str, torch.Tensor] = {"loss": total.detach(),
                                             "grad_norm": global_norm(grads)}
         if track_sample_loss:
@@ -348,14 +431,16 @@ def make_train_step(loss_cfg: LossCfg, track_sample_loss: bool = False):
         state.step += 1
         return state, metrics
 
-    return step
+    return step if mesh is None else _mesh.shard_train_step(step, mesh)
 
 
-def make_eval_step(num_classes: int):
+def make_eval_step(num_classes: int, mesh=None):
     """eval_step(state, images, labels) -> (C, C) int64 confusion matrix on
-    the device (`state` a TrainState or the model itself): the eval-mode forward (its first head), argmax, and
-    `seg_metrics.confusion_matrix`, which drops labels >= num_classes
-    (the loop's padding)."""
+    the device (`state` a TrainState or the model itself): the eval-mode
+    forward (its first head), argmax, and `seg_metrics.confusion_matrix`,
+    which drops labels >= num_classes (the loop's padding). With `mesh`,
+    over its data axis (`parallel.shard_eval_step`): each rank's slice,
+    the matrix summed over the ranks."""
 
     def step(state, images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         model = getattr(state, "model", state).eval()
@@ -363,6 +448,7 @@ def make_eval_step(num_classes: int):
             logits = model(images)
         if isinstance(logits, (list, tuple)):
             logits = logits[0]
-        return seg_metrics.confusion_matrix(logits.argmax(1), labels, num_classes)
+        return _mesh.all_sum(seg_metrics.confusion_matrix(logits.argmax(1), labels,
+                                                          num_classes))
 
-    return step
+    return step if mesh is None else _mesh.shard_eval_step(step, mesh)
