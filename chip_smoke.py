@@ -166,6 +166,22 @@ Phases; any failure exits non-zero and prints no result line:
      micro-step and frames/s of each beside the bare one (the collectives'
      cost at one rank). Phase 9's `cli train` runs go through
      `train.loop.train_model`, and so over the mesh, too
+ 12. the spatial axis (`phase_spatial`, after phase 11): 2 and 4 ranks,
+     each its own process, all on cuda:0 in one gloo group (NCCL takes no
+     two ranks on one device), the kernels built before they start:
+     `parallel.shard_pipeline_step(build_step(...), mesh, spatial=True)`
+     with the seeded NestedUNet on high_res_roi fp32 (b=2 native
+     2448x2048 frames, 1 x 2 and 1 x 4: two ranks hold no frame),
+     two_stage fp32, bf16 and int8 (b=8, 2 x 2) and production and
+     enhanced fp32 (b=8, 1 x 2), against build_step on the card: class
+     maps and px counts equal, or differing only on tie pixels of the
+     logits (top-2 gap < 1e-5 in fp32; in bf16 the stripes move the logits
+     less than bf16 moves them from fp32, and flips lie under twice that
+     move; counted, the flips at a gap >= 1e-3 apart), the int8
+     forward's 19 int8 tensors bit for bit on every stripe, B1, B2 and
+     qconv launches and peak memory per rank; ms per batch at S = 1, 2, 4
+     and the
+     transport's share (processes sharing one card: not a scaling figure)
 Then, on the last two lines, the kernels' JSON record and
 {"ok": true, "device": {...}}.
 
@@ -3092,6 +3108,347 @@ def phase_mesh(expect, H=448, W=800, device="cuda", b=8, train_size=512, train_b
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the spatial axis (ranks of one gloo group on one card)
+# ---------------------------------------------------------------------------
+
+SPATIAL_GAP = 1e-5   # fp32 tie pixels: the reference logits' top-2 gap below this
+
+
+def spatial_plan(H=448, W=800, b=8, high_res_b=2, native=None, model_size=None):
+    """The runs of `phase_spatial`: (name, (n_data, n_spatial), model dtype,
+    cfg, frames) of high_res_roi fp32 on `high_res_b` native frames over 1 x
+    2 and 1 x 4, two_stage fp32, bf16 and int8 on b frames over 2 x 2, and
+    production and enhanced fp32 on b frames over 1 x 2. int8's scales come
+    from `stages.calibrate_int8` on the CPU (the same scales on every
+    rank). `native` replaces the 2448x2048 frames, `model_size` every
+    model input (a rehearsal on the CPU)."""
+    from unet_tpu_torch.pipeline import presets, stages
+
+    def sized(cfg):
+        return cfg if model_size is None else cfg.replace_in(
+            "preprocess", model_size=(model_size, model_size))
+
+    hi = native if native is not None else high_res_scenes(high_res_b, seed=61)
+    two = sized(presets.two_stage())
+    frames = synthetic_frames(b, H, W, seed=62)
+    qcfg = stages.calibrate_int8(seeded_nested_unet(dtype=torch.bfloat16), two,
+                                 [synthetic_frames(2, H, W, seed=63)], device="cpu")
+    f32, b16 = torch.float32, torch.bfloat16
+    return [("high_res_roi", (1, 2), f32, sized(presets.high_res_roi()), hi),
+            ("high_res_roi", (1, 4), f32, sized(presets.high_res_roi()), hi),
+            ("two_stage", (2, 2), f32, two, frames),
+            ("two_stage_bf16", (2, 2), b16, two.replace_in("segment", fast_forward=True), frames),
+            ("two_stage_int8", (2, 2), b16, qcfg, frames),
+            ("production", (1, 2), f32, sized(presets.production()),
+             geometry_scenes("production", b, H, W, seed=64)),
+            ("enhanced", (1, 2), f32, sized(presets.enhanced()), enhanced_scenes(b, H, W, seed=65))]
+
+
+def _logits_spy(captured: list):
+    """Replace `stages.run_pipeline` by one whose forward keeps each batch's
+    logits (on the CPU, in their dtype) in `captured`; returns the restore
+    function."""
+    from unet_tpu_torch.pipeline import stages
+
+    real = stages.run_pipeline
+
+    def spy(forward, frames, cfg, prev_frame_bgr=None):
+        def fwd(x):
+            y = forward(x)
+            captured.append(y.cpu())
+            return y
+        return real(fwd, frames, cfg, prev_frame_bgr)
+
+    stages.run_pipeline = spy
+    return lambda: setattr(stages, "run_pipeline", real)
+
+
+def _timed_transport(totals: list):
+    """Wrap `parallel.spatial.all_gather` to add its host time, between two
+    synchronizes, to totals[0]; returns the restore function."""
+    from unet_tpu_torch.parallel import spatial
+
+    real = spatial.all_gather
+
+    def timed(buf, group, n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(buf, group, n)
+        torch.cuda.synchronize()
+        totals[0] += time.perf_counter() - t
+        return out
+
+    spatial.all_gather = timed
+    return lambda: setattr(spatial, "all_gather", real)
+
+
+def _int8_stripes_check(mesh, cfg, frames, device) -> int:
+    """The int8 forward on this rank's H stripe of one frame's model input
+    with its 19 int8 tensors tapped, against the unsharded forward's rows
+    on the same card; raises unless every tensor is bit-identical. Returns
+    the tensors' count."""
+    from unet_tpu_torch.models import quantized as q
+    from unet_tpu_torch.parallel import spatial
+    from unet_tpu_torch.pipeline import stages
+
+    model = seeded_nested_unet(dtype=torch.bfloat16)
+    qp = q.prepare_int8_params(model.state_dict(), cfg.segment.int8_scales, model.dtype, device)
+    x = stages.model_input(stages.preprocess_frames(frames[:1], cfg), cfg)
+    st = spatial.Stripes(spatial.stripe_bounds(x.shape[1], mesh.spatial_size),
+                         mesh.spatial_rank, mesh.spatial_group)
+    got, want = {}, {}
+    with torch.inference_mode():
+        q.nested_unet_forward_int8_striped(qp, x[:, st.start:st.end].contiguous(), st, got)
+        q.nested_unet_forward_int8(qp, x, want)
+    for k in q.TAP_NAMES:
+        level = x.shape[1] // want[k].shape[1]
+        if not torch.equal(got[k], want[k][:, st.start // level:st.end // level]):
+            raise AssertionError(f"int8 {k}: the stripe differs from the unsharded rows")
+    return len(q.TAP_NAMES)
+
+
+def _spatial_rank(rank: int, world: int, store: str, path: str, mem_frac: float) -> None:
+    """One rank of `phase_spatial`'s gloo group: every run of the plan at
+    `path` whose mesh has `world` ranks, through
+    `shard_pipeline_step(build_step(...), mesh, spatial=True)` on the
+    global frames; per run its outputs (CPU), the logits of its frames,
+    its launches, ms per batch, the transport's host time and its peak
+    memory. Written to path.rank<r>. On the card the rank may hold
+    `mem_frac` of it (its share of what was free when the ranks started):
+    cuDNN then takes an algorithm whose workspace fits."""
+    import torch.distributed as dist
+
+    from unet_tpu_torch import parallel
+    from unet_tpu_torch.pipeline import stages
+
+    plan = torch.load(path, weights_only=False)
+    device = plan["device"]
+    if device == "cpu":   # a rehearsal: nothing to synchronize
+        torch.cuda.synchronize = lambda *a, **k: None
+    else:
+        torch.cuda.set_per_process_memory_fraction(mem_frac, 0)
+    torch.set_num_threads(plan["threads"])
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+    try:
+        meshes, res = {}, []
+        for name, shape, dtype, cfg, frames in plan["runs"]:
+            if shape[0] * shape[1] != world:
+                continue
+            if shape not in meshes:
+                meshes[shape] = parallel.make_mesh(*shape, device=plan["mesh_device"])
+            mesh = meshes[shape]
+            step = parallel.shard_pipeline_step(
+                stages.build_step(seeded_nested_unet(dtype=dtype), cfg, device=mesh.device),
+                mesh, spatial=True)
+            fr = torch.from_numpy(frames).to(mesh.device)
+            if device != "cpu":
+                torch.cuda.reset_peak_memory_stats()
+            step(fr)
+            captured = []
+            restore = _logits_spy(captured)
+            try:
+                _zero_counts()
+                out = step(fr)
+                counts = _read_counts()
+            finally:
+                restore()
+            k = fr.shape[0] // mesh.size
+            first, mine = parallel.spatial.frame_split(k, mesh.spatial_size)[mesh.spatial_rank]
+            ms, transport = [], [0.0]
+            for timed in (False, True):
+                restore = _timed_transport(transport) if timed else (lambda: None)
+                try:
+                    for _ in range(plan["reps"]):
+                        dist.barrier()
+                        torch.cuda.synchronize()
+                        t = time.perf_counter()
+                        step(fr)
+                        torch.cuda.synchronize()
+                        if not timed:
+                            ms.append((time.perf_counter() - t) * 1e3)
+                finally:
+                    restore()
+            r = dict(name=name, shape=shape, outputs={k_: v.cpu() for k_, v in _leaves(out).items()},
+                     first=mesh.rank * k + first, logits=captured[0] if captured else None,
+                     counts=counts, frames=mine, ms=ms, transport_ms=transport[0] * 1e3 / plan["reps"],
+                     peak_gib=(torch.cuda.max_memory_allocated() / 2 ** 30 if device != "cpu"
+                               else None))
+            if name == "two_stage_int8":
+                r["int8_tensors"] = _int8_stripes_check(mesh, cfg, fr, mesh.device)
+            res.append(r)
+        torch.save(res, f"{path}.rank{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_spatial(card="", device="cuda", H=448, W=800, b=8, high_res_b=2, native=None,
+                  model_size=None, reps=3):
+    """The spatial axis (phase 12): 2 and 4 ranks of one gloo group on one
+    card (`cuda:0`: NCCL takes no two ranks on one device), each its own
+    process, the kernels built before they start (`_build.build_all`). The
+    runs of `spatial_plan`, each through `parallel.shard_pipeline_step(...,
+    spatial=True)` against `stages.build_step` on the same card and frames
+    (the seeded full-width 3-class NestedUNet): every rank's outputs equal;
+    class maps and px counts equal to build_step's, or differing only on
+    the tie pixels of the reference logits (the algorithm cuDNN picks for
+    a stripe's shape sums in another order; the flips are counted): in
+    fp32 a top-2 gap below SPATIAL_GAP; in bf16 (the fast and int8
+    forwards' logits) the stripes may move the logits by less than bf16
+    moves them from the fp32 step's on the same frames, and a flip must lie
+    where the gap is under twice that move (one bf16 ulp, 0.0078 at a logit
+    of 1 to 2, exceeds a gap of 1e-3: the flips at a gap >= 1e-3
+    are counted apart); every other field equal where no pixel flips
+    (integers; floats within 1e-4);
+    the int8 forward's 19 int8 tensors on each rank's stripe bit for bit
+    with the unsharded rows; the launches per rank: B1 and B2 as
+    build_step's on a rank with frames and none on a rank without, qconv
+    18 (17 wgmma, 1 c3) on every rank; each rank's peak memory (a rank may
+    hold its share of what was free when the ranks started). ms per batch
+    at S = 1 (build_step),
+    2 and 4 (rank 0's median of `reps`) and the transport's share (host
+    time inside the all-gathers, between synchronizes, in a second set of
+    `reps`). Processes that share one card: not a scaling figure. Returns
+    the record."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from unet_tpu_torch import _build
+    from unet_tpu_torch.pipeline import stages
+
+    if device != "cpu":
+        _build.build_all(["cc_propagate", "nlm", "qconv"])
+        torch.cuda.empty_cache()   # the card's memory for the ranks
+    t0 = time.time()
+    runs = spatial_plan(H, W, b, high_res_b, native, model_size)
+    rec = dict(backend="gloo", device=device, runs={})
+    # the references: build_step on the same device, S = 1
+    want = {}
+    for name, shape, dtype, cfg, frames in runs:
+        if name in want:
+            continue
+        step = stages.build_step(seeded_nested_unet(dtype=dtype), cfg, device=device)
+        fr = torch.from_numpy(frames).to(device)
+        captured = []
+        restore = _logits_spy(captured)
+        try:
+            _zero_counts()
+            out = step(fr)
+            counts = _read_counts()
+        finally:
+            restore()
+        want[name] = (out, captured[0], counts, _time_step(step, fr, reps=reps))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spatial_") as tmp:
+        path = os.path.join(tmp, "plan.pt")
+        # the ranks' threads: on the CPU the parent's (its convs sum in an
+        # order that depends on the thread count); on the card 2 each
+        torch.save(dict(runs=runs, device=device, reps=reps,
+                        threads=torch.get_num_threads() if device == "cpu" else 2,
+                        mesh_device="cpu" if device == "cpu" else "cuda:0"), path)
+        ranks = {}
+        for world in (2, 4):
+            t, mem_frac = time.time(), 1.0
+            if device != "cpu":
+                torch.cuda.empty_cache()
+                free, total = torch.cuda.mem_get_info()
+                mem_frac = 0.9 * free / world / total
+                _log(f"spatial: {free / 2 ** 30:.1f} of {total / 2 ** 30:.1f} GiB free; each of "
+                     f"{world} ranks may hold {mem_frac * total / 2 ** 30:.1f} GiB")
+            mp.start_processes(_spatial_rank, args=(world, os.path.join(tmp, f"store{world}"),
+                                                    path, mem_frac), nprocs=world,
+                               start_method="spawn")
+            ranks[world] = [torch.load(f"{path}.rank{r}", weights_only=False)
+                            for r in range(world)]
+            for r in range(world):
+                os.remove(f"{path}.rank{r}")
+            _log(f"spatial: {world} ranks on {device} in {time.time() - t:.1f} s")
+    from types import SimpleNamespace
+
+    for world, per_rank in ranks.items():
+        for i, r0 in enumerate(per_rank[0]):
+            name, shape = r0["name"], r0["shape"]
+            what = f"spatial {name} over {shape[0]} x {shape[1]}"
+            out, want_logits, want_counts, ms1 = want[name]
+            wl = {k: v.cpu() for k, v in _leaves(out).items()}
+            for r, res in enumerate(per_rank):
+                got = res[i]["outputs"]
+                if sorted(got) != sorted(wl) or any(not torch.equal(got[k], r0["outputs"][k])
+                                                   for k in got):
+                    raise AssertionError(f"{what}: rank {r}'s outputs differ from rank 0's")
+                qk = {k: v for k, v in want_counts.items() if k.startswith("qconv")}
+                other = {k: (v if res[i]["frames"] else 0) for k, v in want_counts.items()
+                         if not k.startswith("qconv")}
+                if res[i]["counts"] != {**other, **qk}:
+                    raise AssertionError(f"{what}: rank {r} ({res[i]['frames']} frames) "
+                                         f"launched {res[i]['counts']}, expected {other | qk}")
+            # one copy of each frame: ranks of the data axis's other slices
+            # hold their own frames, the spatial group splits a slice
+            seen, parts = set(), []
+            for res in sorted(per_rank, key=lambda x: x[i]["first"]):
+                if res[i]["frames"] and res[i]["first"] not in seen:
+                    seen.add(res[i]["first"])
+                    parts.append(res[i]["logits"])
+            logits = torch.cat(parts).float()
+            g = r0["outputs"]
+            wlf = want_logits.float()
+            moved = float((logits - wlf).abs().max())
+            gap, gap_text, own = SPATIAL_GAP, f"{SPATIAL_GAP:g}", None
+            if want_logits.dtype == torch.bfloat16:
+                # a stripe may move the bf16 logits (cuDNN's algorithm for its
+                # shape rounds otherwise) by less than bf16 moves them from
+                # the fp32 step's on the same frames; a pixel can flip only
+                # where its gap is under twice the move
+                own = float((wlf - want[name.rsplit("_", 1)[0]][1].float()).abs().max())
+                if moved > own:
+                    raise AssertionError(f"{what}: the stripes move the logits by {moved:.3e}, "
+                                         f"more than bf16 moves them from fp32 ({own:.3e})")
+                gap, gap_text = 2 * moved, f"2 x the logits' move, {2 * moved:.3e}"
+            flips = logits.argmax(1) != wlf.argmax(1)
+            top2 = wlf.topk(2, dim=1).values
+            flip_gaps = (top2[:, 0] - top2[:, 1])[flips]
+            ties = compare_with_ties(SimpleNamespace(**g), out, logits, want_logits, what, gap)
+            ties.update(largest_flip_gap=float(flip_gaps.max()) if len(flip_gaps) else 0.0,
+                        flips_gap_over_1e3=int((flip_gaps >= 1e-3).sum()),
+                        bf16_vs_fp32_max_abs_diff=own)
+            if ties["flips"] == 0:
+                for k, w in wl.items():
+                    if w.dtype.is_floating_point:
+                        if not torch.allclose(g[k], w, rtol=1e-4, atol=1e-4):
+                            raise AssertionError(f"{what}: {k} differs")
+                    elif not torch.equal(g[k], w):
+                        raise AssertionError(f"{what}: {k} differs")
+            logit_err = moved
+            rows = [dict(rank=r, frames=res[i]["frames"], counts={
+                k: v for k, v in res[i]["counts"].items() if v}, ms=res[i]["ms"],
+                transport_ms=res[i]["transport_ms"], peak_gib=res[i]["peak_gib"])
+                for r, res in enumerate(per_rank)]
+            ms = float(np.median(r0["ms"]))
+            key = f"{name} {shape[0]}x{shape[1]}"
+            rec["runs"][key] = dict(ms=ms, ms_runs=r0["ms"], build_step_ms=ms1,
+                                    transport_ms=r0["transport_ms"],
+                                    transport_share=r0["transport_ms"] / ms,
+                                    logits_max_abs_diff=logit_err, fields=len(wl),
+                                    int8_tensors=r0.get("int8_tensors"), per_rank=rows, **ties)
+            _log(f"{what}, b={g['class_map'].shape[0]}: {len(wl)} output fields as "
+                 f"build_step's; logits max abs diff {logit_err:.3e}, argmax flips "
+                 f"{ties['flips']} (all on tie pixels, top-2 gap < {gap_text}: "
+                 f"{ties['tie_pixels']} in the reference; largest gap of a flip "
+                 f"{ties['largest_flip_gap']:.3e}, {ties['flips_gap_over_1e3']} flips at a gap "
+                 f">= 1e-3), class-map pixels differing {ties['class_map_diff']}"
+                 + (f"; bf16 against fp32 {own:.3e}" if own is not None else "")
+                 + (f"; int8 tensors bit for bit on every stripe: {r0['int8_tensors']}"
+                    if "int8_tensors" in r0 else "")
+                 + f"; {ms:.3f} ms/batch (S=1 build_step {ms1:.3f}), transport "
+                   f"{r0['transport_ms']:.3f} ms = {r0['transport_ms'] / ms:.1%} (rank 0) [{card}]")
+            for row in rows:
+                _log(f"  rank {row['rank']}: {row['frames']} frame(s), launches {row['counts']}"
+                     + (f", peak {row['peak_gib']:.3f} GiB" if row["peak_gib"] is not None
+                        else ""))
+    rec["seconds"] = round(time.time() - t0, 1)
+    return rec
+
+
 @contextlib.contextmanager
 def _deterministic():
     """torch's deterministic algorithms (and cuDNN's), restored on exit."""
@@ -3328,6 +3685,10 @@ def main() -> int:
     for name, r in mesh["steps"].items():
         engine_counts[f"mesh_{name}"] = r["launches"]
 
+    # -- the spatial axis: 2 and 4 ranks of one gloo group on the card, the
+    # striped steps against build_step
+    spatial = phase_spatial(card=card)
+
     # the mma.sync kernel has no main-path launch (conv0_0.conv1 takes the c3
     # kernel): its entry holds its time forced at that site, the c3 kernel's
     # yardstick
@@ -3355,7 +3716,10 @@ def main() -> int:
                                               if c[name]},
                 "max_abs_err": max_err, **total,
                 "bound_by": max(per_launch, key=lambda p: p["bound_ms"])["bound_by"],
-                "library_ms": library_ms, "per_launch": per_launch, **extra}
+                "library_ms": library_ms, "per_launch": per_launch,
+                "spatial_launches_per_rank": {
+                    k: [row["counts"].get(name, 0) for row in r["per_rank"]]
+                    for k, r in spatial["runs"].items()}, **extra}
 
     record = {"kernels": [
         entry("cc_propagate", "unet_tpu_torch/csrc/cc_propagate.cu",
@@ -3383,7 +3747,7 @@ def main() -> int:
         "presets_b8": pre_timings, "preset_checks": pre_checks,
         "engine": engine, "inspect_engine": gate_engine, "config_runs": config_runs,
         "models_b8": mod_timings, "model_checks": mod_checks, "device_trace": trace,
-        "train": train, "export": export, "mesh": mesh,
+        "train": train, "export": export, "mesh": mesh, "spatial": spatial,
         "card": card, "seconds": round(time.time() - t_start, 1)}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -32,14 +32,17 @@ def test_make_mesh_shapes_and_refusals():
     assert (mesh.shape, mesh.size, mesh.rank, mesh.ranks) == ((1, 1), 1, 0, (0,))
     assert mesh.device_mesh.mesh_dim_names == (parallel.DATA_AXIS, parallel.SPATIAL_AXIS)
     assert mesh.device == torch.device("cpu") and mesh.member
+    assert (mesh.spatial_size, mesh.spatial_rank) == (1, 0)
     with pytest.raises(ValueError, match="2x1 mesh != 1 ranks"):
         parallel.make_mesh(n_data=2, device="cpu")
-    for call in (lambda: parallel.make_mesh(n_spatial=2, device="cpu"),
-                 lambda: parallel.shard_pipeline_step(None, mesh, spatial=True),
-                 lambda: parallel.shard_train_step(None, mesh, spatial=True),
-                 lambda: parallel.put_batch(mesh, np.zeros((2, 4, 4, 3)), spatial=True)):
-        with pytest.raises(NotImplementedError, match="A15c"):
-            call()
+    with pytest.raises(ValueError, match="0x2 mesh != 1 ranks"):
+        parallel.make_mesh(n_spatial=2, device="cpu")
+    # the spatial axis runs (tests/test_torch_spatial.py); its train step
+    # is ROADMAP A15d
+    with pytest.raises(NotImplementedError, match="A15d"):
+        parallel.shard_train_step(None, mesh, spatial=True)
+    im = parallel.put_batch(mesh, np.ones((2, 32, 4, 3), np.float32), spatial=True)
+    assert im.shape == (2, 32, 4, 3)
     # a batch that the data axis does not divide raises; a one-rank mesh
     # takes a global batch whole
     im, lb = parallel.put_batch(mesh, np.ones((3, 4, 4, 3), np.float32),
@@ -48,6 +51,18 @@ def test_make_mesh_shapes_and_refusals():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             parallel.make_mesh(device="cuda")
+
+
+def test_mesh_device_takes_the_named_card(monkeypatch):
+    """"cuda" is torchrun's LOCAL_RANK card, "cuda:N" the card the caller
+    names (several ranks on one card), "cpu" the CPU."""
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    assert parallel.mesh_device("cuda") == torch.device("cuda", 3)
+    assert parallel.mesh_device("cuda:0") == torch.device("cuda", 0)
+    assert parallel.mesh_device("cpu") == torch.device("cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            parallel.make_mesh(device="cuda:0")
 
 
 def _cases():

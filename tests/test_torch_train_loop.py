@@ -120,7 +120,7 @@ def test_cli_train_and_evaluate_match_the_jax_evaluate(root, tmp_path, monkeypat
 def test_every_recipe_builds_and_refusals_name_their_items(root, tmp_path, monkeypatch):
     """All ten recipes run through `cli train` (the loop and overfit_test
     stubbed to record what they were given); a --n-devices other than the
-    world size refuses, and spatial sharding names A15c."""
+    world size refuses, and the spatial train step names A15d."""
     from unet_tpu_torch.train import loop, recipes
 
     seen = {}
@@ -142,11 +142,11 @@ def test_every_recipe_builds_and_refusals_name_their_items(root, tmp_path, monke
     assert (arch, dtype, device, cfg.optim.accum_steps, cfg.loss.weight_tversky) == (
         "NestedUNet", torch.bfloat16, "cpu", 2, 0.45)
     assert seen[str(tmp_path / "inspection")][0] == "LightweightNestedUNet"
-    # a --n-devices that is not the world size refuses; spatial sharding
-    # names A15c
+    # a --n-devices that is not the world size refuses; the spatial train
+    # step names A15d
     with pytest.raises(SystemExit, match="world size is 1"):
         main(["train", "--data-root", root, "--n-devices", "2", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="A15c"):
+    with pytest.raises(SystemExit, match="A15d"):
         loop.train_model(NestedUNet(3), None, None, TrainRunCfg(n_spatial=2), device="cpu")
 
 

@@ -4,11 +4,15 @@ Each `csrc/<name>.cu` has a plain C interface (no PyTorch headers), so
 `nvcc` builds it into a shared library in seconds; `ctypes` loads it. The
 build happens at first use, never at import, into `build/kernels/` at the
 root of the checkout (listed in .gitignore). A library's file name carries
-a hash of its source and flags, so an edited source is rebuilt.
+a hash of its source and flags, so an edited source is rebuilt. Builds are
+serialised across processes (ranks that start together) by an exclusive
+`flock` on `build/kernels/build.lock`, which the kernel drops when its
+holder exits: the first process compiles, the others find the library.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -46,6 +50,12 @@ def build_all(names: Sequence[str]) -> Dict[str, Tuple[Path, str]]:
     log)}; the log holds ptxas's register and shared-memory report. Raises
     RuntimeError with the compiler's output when a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build_locked(names)
+
+
+def _build_locked(names: Sequence[str]) -> Dict[str, Tuple[Path, str]]:
     procs = {}
     out: Dict[str, Tuple[Path, str]] = {}
     for name in names:

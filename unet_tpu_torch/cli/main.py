@@ -24,7 +24,7 @@ its sidecar.
 
 `bench` is not ported yet (ROADMAP A5): it names its item and exits
 non-zero. `train` runs over every rank that `torchrun --nproc-per-node N`
-starts (parallel.mesh's data axis); spatial sharding is ROADMAP A15c. An
+starts (parallel.mesh's data axis); the spatial train step is ROADMAP A15d. An
 orbax checkpoint directory of the JAX package is read after
 `convert_orbax.py` has turned it into a .pth.
 

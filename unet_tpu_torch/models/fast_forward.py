@@ -35,7 +35,8 @@ from typing import Callable, Dict, Mapping, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from unet_tpu_torch.ops.image import upsample2x_align_corners
+from unet_tpu_torch.ops.image import upsample2x_align_corners, upsample2x_align_corners_rows
+from unet_tpu_torch.parallel import spatial
 
 BLOCK_NAMES = ("conv0_0", "conv1_0", "conv2_0", "conv3_0", "conv4_0",
                "conv3_1", "conv2_2", "conv1_3", "conv0_4")
@@ -144,6 +145,36 @@ def nested_unet_forward_fast(fp: FastParams, x: torch.Tensor) -> torch.Tensor:
 
     y = run_topology(x.to(fp.dtype), block, maxpool2_nhwc, up2x_nhwc, cat_nhwc)
     return conv_nhwc(y, fp.final_w, fp.final_b)
+
+
+def nested_unet_forward_fast_striped(fp: FastParams, x: torch.Tensor,
+                                     stripes) -> torch.Tensor:
+    """`nested_unet_forward_fast` on an H stripe (parallel.spatial): x (B,
+    rows, W, 3) holds the model input's rows [stripes.start, stripes.end);
+    returns the logits' same rows, equal to the whole forward's on one
+    device bit for bit (on the CPU; cuDNN may pick another algorithm for a
+    stripe's shape). Each block's two convs run on its halo slab, 2 rows
+    each side; the upsample slices the global tap table at the stripe's
+    rows (`ops.image.upsample2x_align_corners_rows`). A collective of the
+    spatial group."""
+    def block(name, t):
+        l1, l2 = fp.blocks[name]
+
+        def run(s):
+            return torch.relu_(conv_nhwc(torch.relu_(conv_nhwc(s, l1.w, l1.b)), l2.w, l2.b))
+
+        return spatial.halo(run, [t], stripes.at(t.shape[1]), 2, axis=1)
+
+    def up(t):
+        return spatial.up2x(t, stripes.at(t.shape[1]), 1, up2x_rows_nhwc)
+
+    y = run_topology(x.to(fp.dtype), block, maxpool2_nhwc, up, cat_nhwc)
+    return conv_nhwc(y, fp.final_w, fp.final_b)
+
+
+def up2x_rows_nhwc(slab: torch.Tensor, lo: int, n: int, rows) -> torch.Tensor:
+    """Rows `rows` of `up2x_nhwc` of an n-row plane from its rows [lo, ...)."""
+    return upsample2x_align_corners_rows(slab, lo, n, rows, 1, 2)
 
 
 def fast_apply(state_dict: Mapping[str, torch.Tensor], x: torch.Tensor,

@@ -46,9 +46,11 @@ import torch
 from unet_tpu_torch.models.blocks import fp32_convs
 from unet_tpu_torch.models.fast_forward import (BLOCK_NAMES, cat_nhwc, conv_nhwc,
                                                 folded_layers, maxpool2_nhwc,
-                                                prepare_fast_params, run_topology, up2x_nhwc)
+                                                prepare_fast_params, run_topology, up2x_nhwc,
+                                                up2x_rows_nhwc)
 from unet_tpu_torch.ops import qconv_kernels
 from unet_tpu_torch.ops.image import recip32, upsample2x_align_corners
+from unet_tpu_torch.parallel import spatial
 
 # quantize points: the model input + every post-ReLU tensor
 TAP_NAMES = ("input",) + tuple(f"{n}.relu{i}" for n in BLOCK_NAMES for i in (1, 2))
@@ -240,6 +242,51 @@ def nested_unet_forward_int8(qp: QParams, x: torch.Tensor,
 
     y = run_topology(xq, block, _maxpool2_int8, lambda t: _up_int8(t, qp.dtype),
                      lambda a, b: (a, b))
+    yd = _dequant(y, sc["conv0_4.relu2"], qp.dtype)
+    return torch.matmul(yd, qp.final_w) + qp.final_b
+
+
+def nested_unet_forward_int8_striped(qp: QParams, x: torch.Tensor, stripes,
+                                     taps: Optional[Dict[str, torch.Tensor]] = None
+                                     ) -> torch.Tensor:
+    """`nested_unet_forward_int8` on an H stripe (parallel.spatial): x (B,
+    rows, W, 3) holds the model input's rows [stripes.start, stripes.end);
+    returns the logits' same rows. Every int8 tensor equals the whole
+    forward's rows bit for bit (qconv's accumulator is exact, its route
+    does not depend on H); the logits too on the CPU. Each block's two
+    qconvs run on its halo slab, 2 rows each side (a decoder block's skip
+    and upsampled halves in one exchange); the upsample slices the global
+    tap table at the stripe's rows. `taps`, where given, receives the
+    stripe's rows of every int8 tensor of TAP_NAMES. A collective of the
+    spatial group."""
+    sc = qp.scales
+    tap = (lambda n, t: taps.__setitem__(n, t)) if taps is not None else (lambda n, t: None)
+    xq = quantize_input(x, sc["input"])
+    tap("input", xq)
+
+    def block(name, t):
+        l1, l2 = qp.blocks[name]
+        srcs = list(t) if isinstance(t, tuple) else [t]
+        st = stripes.at(srcs[0].shape[1])
+        lo = max(st.start - 2, 0)
+
+        def run(*s):
+            y = qconv_kernels.qconv(s if len(s) == 2 else s[0], l1.wq, l1.mult, l1.bias)
+            tap(f"{name}.relu1", y.narrow(1, st.start - lo, st.rows))
+            return qconv_kernels.qconv(y, l2.wq, l2.mult, l2.bias)
+
+        y = spatial.halo(run, srcs, st, 2, axis=1)
+        tap(f"{name}.relu2", y)
+        return y
+
+    def up_rows(slab, lo, n, rows):
+        y = up2x_rows_nhwc(slab.to(qp.dtype), lo, n, rows)
+        return torch.clamp(torch.round(y), 0, 127).to(torch.int8)
+
+    def up(t):
+        return spatial.up2x(t, stripes.at(t.shape[1]), 1, up_rows)
+
+    y = run_topology(xq, block, _maxpool2_int8, up, lambda a, b: (a, b))
     yd = _dequant(y, sc["conv0_4.relu2"], qp.dtype)
     return torch.matmul(yd, qp.final_w) + qp.final_b
 

@@ -25,8 +25,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from torch.func import functional_call
+
 from unet_tpu_torch.models.blocks import ComputeDtype, ConvBlock, max_pool2, remat
+from unet_tpu_torch.models.fast_forward import run_topology
 from unet_tpu_torch.models.resnet import resnet50_stages
+from unet_tpu_torch.parallel import spatial
 
 NB_FILTER = (32, 64, 128, 256, 512)
 RESNET50_CHANNELS = (64, 256, 512, 1024, 2048)
@@ -114,3 +118,64 @@ class NestedUNet(ComputeDtype):
             return [out, rs(self.ds1_3(x1_3)), rs(self.ds2_2(x2_2)),
                     rs(self.ds3_1(x3_1))]
         return out
+
+
+# ---------------------------------------------------------------------------
+# on H stripes (parallel.spatial, ROADMAP A15c)
+# ---------------------------------------------------------------------------
+
+def interpolate_rows(slab: torch.Tensor, lo: int, n: int, rows) -> torch.Tensor:
+    """Rows [s, e) = `rows` of `F.interpolate(t, scale_factor=2,
+    mode="bilinear", align_corners=True)` of an n-row NCHW plane t, from
+    `slab`, its rows [lo, lo + slab rows), bit for bit with the whole call on
+    one device: the slab is placed in a zero plane of the full height, so
+    that the call sees the unsharded shape and takes its taps and its
+    arithmetic; only the rows that the output rows read are real. Its cost:
+    the whole upsampled plane, transiently, on every rank."""
+    full = slab.new_zeros(slab.shape[:2] + (n,) + slab.shape[3:])
+    full[:, :, lo:lo + slab.shape[2]] = slab
+    y = F.interpolate(full, scale_factor=2, mode="bilinear", align_corners=True)
+    return y[:, :, rows[0]:rows[1]].contiguous()
+
+
+class _Striped(nn.Module):
+    """`striped_forward` as a module, so that `functional_call` can run it
+    on the cast copies of a model whose compute type is not float32."""
+
+    def __init__(self, model: NestedUNet, stripes: spatial.Stripes):
+        super().__init__()
+        self.model = model
+        self.stripes = stripes
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        m, st = self.model, self.stripes
+
+        def block(name, t):
+            return spatial.halo(getattr(m, name), [t], st.at(t.shape[2]), 2, axis=2)
+
+        def up(t):
+            return spatial.up2x(t, st.at(t.shape[2]), 2, interpolate_rows)
+
+        y = run_topology(x, block, max_pool2, up, lambda a, b: torch.cat([a, b], 1))
+        return m.final(y)
+
+
+def striped_forward(model: NestedUNet, x: torch.Tensor, stripes: spatial.Stripes) -> torch.Tensor:
+    """The eval-mode logits of a custom-encoder NestedUNet on an H stripe:
+    `x` (B, Cin, rows, W) holds the model input's rows [stripes.start,
+    stripes.end); returns the logits' same rows, equal to the whole
+    forward's on one device bit for bit (on the CPU; cuDNN may pick another
+    algorithm for a stripe's shape). Each ConvBlock runs on its halo slab,
+    2 rows each side (`spatial.halo`), the pools on stripes whose bounds are
+    even at every level, BatchNorm and the 1x1 head are row-local, and the
+    decoder's upsample reads the global source rows of its taps
+    (`interpolate_rows`). A collective of the spatial group."""
+    if model.pretrained_encoder:
+        raise NotImplementedError("the ResNet50-encoder NestedUNet on H stripes: ROADMAP A15e")
+    if model.training:
+        raise NotImplementedError("the train-mode forward on H stripes: ROADMAP A15d")
+    net = _Striped(model, stripes)
+    if next(model.parameters()).dtype != model.dtype:
+        state = {f"model.{k}": v for k, v in model._cast_state().items()}
+        return functional_call(net, state, (x.to(model.dtype),))
+    return net(x)

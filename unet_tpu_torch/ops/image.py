@@ -137,19 +137,43 @@ def upsample2x_align_corners(x: torch.Tensor, h_axis: int, w_axis: int) -> torch
     and bf16 weights are exact in float32, so the result is bit-identical to
     the JAX package's; F.interpolate in bf16 is not (it differs on 11-17 % of
     int8 codes). In float32 it equals F.interpolate up to the last bit."""
-    def axis_up(t, axis):
-        n = t.shape[axis]
-        if n == 1:
-            return t.repeat_interleave(2, dim=axis)
-        i0, i1, w0, w1 = _table(_upsample2x_taps, n, t.device)
-        shape = [1] * t.ndim
-        shape[axis] = 2 * n
-        w0, w1 = (w.to(t.dtype).to(torch.float32).reshape(shape) for w in (w0, w1))
-        a = t.index_select(axis, i0).to(torch.float32)
-        b = t.index_select(axis, i1).to(torch.float32)
-        return (a * w0 + b * w1).to(t.dtype)
+    return _up2x_axis(_up2x_axis(x, h_axis), w_axis)
 
-    return axis_up(axis_up(x, h_axis), w_axis)
+
+def _up2x_axis(t: torch.Tensor, axis: int) -> torch.Tensor:
+    """One axis of `upsample2x_align_corners`."""
+    n = t.shape[axis]
+    if n == 1:
+        return t.repeat_interleave(2, dim=axis)
+    return _lerp(t, axis, *_table(_upsample2x_taps, n, t.device))
+
+
+def _lerp(t: torch.Tensor, axis: int, i0: torch.Tensor, i1: torch.Tensor, w0: torch.Tensor,
+          w1: torch.Tensor) -> torch.Tensor:
+    """Rows i0 and i1 of `t` along `axis`, weighted by w0 and w1 cast to
+    t.dtype, summed in float32, rounded to t.dtype."""
+    shape = [1] * t.ndim
+    shape[axis] = i0.shape[0]
+    w0, w1 = (w.to(t.dtype).to(torch.float32).reshape(shape) for w in (w0, w1))
+    a = t.index_select(axis, i0).to(torch.float32)
+    b = t.index_select(axis, i1).to(torch.float32)
+    return (a * w0 + b * w1).to(t.dtype)
+
+
+def upsample2x_align_corners_rows(slab: torch.Tensor, lo: int, n: int, rows, h_axis: int,
+                                  w_axis: int) -> torch.Tensor:
+    """Rows [s, e) = `rows` along `h_axis` of `upsample2x_align_corners` of
+    an n-row plane, bit for bit, from `slab`, which holds the plane's rows
+    [lo, lo + slab rows) (the rows that the output rows' taps read): the
+    global tap table sliced at the output rows. The H stripes of the bf16
+    and int8 forwards (parallel.spatial.up2x)."""
+    s, e = rows
+    if n == 1:
+        y = slab.narrow(h_axis, 0, 1).repeat_interleave(e - s, dim=h_axis)
+    else:
+        i0, i1, w0, w1 = _table(_upsample2x_taps, n, slab.device)
+        y = _lerp(slab, h_axis, i0[s:e] - lo, i1[s:e] - lo, w0[s:e], w1[s:e])
+    return _up2x_axis(y, w_axis)
 
 
 def _align_corners_taps(out: int, n: int):

@@ -131,12 +131,10 @@ def _upload(x, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
-def global_put_batch(mesh, images, labels=None, spatial: bool = False):
-    """This process's (B/W, ...) slice on its device, as it is: with one
-    process per device, the slices of all processes make the global batch
+def global_put_batch(mesh, images, labels=None):
+    """This process's block of the batch on its device, as it is (its data
+    slice, and with `mesh.put_batch(spatial=True)` its H stripe): with one
+    process per device, the blocks of all processes make the global batch
     without a copy between them."""
-    from unet_tpu_torch.parallel import mesh as _m
-
-    _m.refuse_spatial(spatial)
     im = _upload(images, mesh.device)
     return im if labels is None else (im, _upload(labels, mesh.device))

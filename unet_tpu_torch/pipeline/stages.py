@@ -53,6 +53,7 @@ from unet_tpu_torch.models import NestedUNet
 from unet_tpu_torch.models import fast_forward as _ff
 from unet_tpu_torch.models import quantized as _q
 from unet_tpu_torch.models.blocks import fp32_convs
+from unet_tpu_torch.models.unetpp import striped_forward
 from unet_tpu_torch.ops import cc as _cc
 from unet_tpu_torch.ops import clahe as _clahe
 from unet_tpu_torch.ops import color as _color
@@ -61,6 +62,7 @@ from unet_tpu_torch.ops import frames as _frames_ops
 from unet_tpu_torch.ops import geometry as _geo
 from unet_tpu_torch.ops import image as _image
 from unet_tpu_torch.ops import morph as _morph
+from unet_tpu_torch.parallel import spatial as _sp
 from unet_tpu_torch.pipeline.config import BurrCfg, PipelineCfg, PostprocessCfg
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -228,6 +230,52 @@ def segment_forward(model: nn.Module, cfg: PipelineCfg,
         fp = _ff.prepare_fast_params(sd, model.dtype, device)
         fwd = lambda x: _ff.nested_unet_forward_fast(fp, x)
     return lambda x: forward_logits(fwd, x).permute(0, 3, 1, 2)
+
+
+def striped_segment_forward(model: nn.Module, cfg: PipelineCfg,
+                            device: Union[str, torch.device]
+                            ) -> Callable[[torch.Tensor, tuple, _sp.Stripes], torch.Tensor]:
+    """`segment_forward` on H stripes over a spatial group (parallel.spatial,
+    ROADMAP A15c): fn(x, counts, stripes) takes this rank's frames' model
+    input (k, h, w, 3), `counts` the slice's frames over the group
+    (`spatial.frame_split`), and returns their (k, C, h, w) logits, equal to
+    `segment_forward`'s on one device (bit for bit on the CPU): the slice's
+    frames are re-split into H stripes of the model input, the forward of
+    the same dtype runs on the stripes (`unetpp.striped_forward`,
+    `fast_forward.nested_unet_forward_fast_striped`,
+    `quantized.nested_unet_forward_int8_striped`), and the logits are
+    re-split into this rank's whole frames, in the layout
+    `segment_forward` gives them. A collective of the spatial group. Only
+    the custom-encoder NestedUNet runs on stripes; another model raises
+    NotImplementedError (ROADMAP A15e)."""
+    seg = cfg.segment
+    if not (isinstance(model, NestedUNet) and not model.pretrained_encoder):
+        what = "the ResNet50-encoder NestedUNet" if isinstance(model, NestedUNet) \
+            else type(model).__name__
+        raise NotImplementedError(f"{what} on H stripes: only the custom-encoder NestedUNet "
+                                  f"runs on a spatial mesh; the model zoo is ROADMAP A15e")
+    model = model.to(device).eval()
+    if not (seg.fast_forward or seg.int8_scales):
+        def plain(x, counts, st):
+            xs = _sp.frames_to_stripes(x, counts, st, axis=1).permute(0, 3, 1, 2).contiguous()
+            logits = forward_logits(lambda t: striped_forward(model, t, st), xs)
+            return _sp.stripes_to_frames(logits, counts, st, axis=2)
+
+        return plain
+    sd = model.state_dict()
+    if seg.int8_scales:
+        qp = _q.prepare_int8_params(sd, seg.int8_scales, model.dtype, device)
+        fwd = lambda x, st: _q.nested_unet_forward_int8_striped(qp, x, st)
+    else:
+        fp = _ff.prepare_fast_params(sd, model.dtype, device)
+        fwd = lambda x, st: _ff.nested_unet_forward_fast_striped(fp, x, st)
+
+    def nhwc(x, counts, st):
+        xs = _sp.frames_to_stripes(x, counts, st, axis=1)
+        logits = forward_logits(lambda t: fwd(t, st), xs)
+        return _sp.stripes_to_frames(logits, counts, st, axis=1).permute(0, 3, 1, 2)
+
+    return nhwc
 
 
 def _c(value: float, dtype: torch.dtype) -> float:
@@ -750,6 +798,7 @@ def build_step(model: nn.Module, cfg: PipelineCfg, device: Union[str, torch.devi
         prev = None if prev_frame_bgr is None else torch.as_tensor(prev_frame_bgr).to(device)
         return run_pipeline(forward, frames, cfg, prev)
 
+    step.parts = (model, cfg, device)   # for parallel.shard_pipeline_step(spatial=True)
     return step
 
 

@@ -20,8 +20,8 @@ pads it, and runs its slice. Rank 0 writes the checkpoints, the history
 and `worst_samples.json`; the others wait at a barrier. With augmentation
 off the run equals the one-device run; with it on, each rank draws its
 slice's augmentation from its own copy of the generator, in another order
-than one process would. `n_spatial > 1` (spatial sharding) is ROADMAP
-A15c.
+than one process would. `n_spatial > 1` (the spatial train step) is
+ROADMAP A15d.
 """
 from __future__ import annotations
 
@@ -115,8 +115,8 @@ def train_model(model: nn.Module, train_loader, val_loader, cfg: TrainRunCfg,
     (train.trainer.flax_init), as the JAX package's `create_train_state`
     initialises it."""
     if cfg.n_spatial > 1:
-        raise SystemExit(f"n_spatial={cfg.n_spatial}: spatial sharding is not ported to "
-                         f"unet_tpu_torch yet, ROADMAP A15c")
+        raise SystemExit(f"n_spatial={cfg.n_spatial}: the spatial train step is not ported "
+                         f"to unet_tpu_torch yet, ROADMAP A15d")
     mesh = train_mesh(getattr(train_loader, "batch_size", None), device)
     if not mesh.member:
         print(f"rank {dist.get_rank()}: the batch size divides over {mesh.size} ranks; idle")

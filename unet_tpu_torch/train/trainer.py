@@ -51,8 +51,10 @@ import torch.nn as nn
 
 from unet_tpu_torch.models import losses as L
 from unet_tpu_torch.models.blocks import fp32_convs
+from unet_tpu_torch.models.unetpp import NestedUNet, striped_forward
 from unet_tpu_torch.ops import seg_metrics
 from unet_tpu_torch.parallel import mesh as _mesh
+from unet_tpu_torch.parallel import spatial
 
 
 @dataclass(frozen=True)
@@ -440,15 +442,34 @@ def make_eval_step(num_classes: int, mesh=None):
     forward (its first head), argmax, and `seg_metrics.confusion_matrix`,
     which drops labels >= num_classes (the loop's padding). With `mesh`,
     over its data axis (`parallel.shard_eval_step`): each rank's slice,
-    the matrix summed over the ranks."""
+    the matrix summed over the ranks. Under `shard_eval_step(step, mesh,
+    spatial=True)`, each rank's H stripe of its slice
+    (`parallel.put_batch(spatial=True)`): the forward of a custom-encoder
+    NestedUNet on the stripes (`models.unetpp.striped_forward`), the matrix
+    summed over both axes."""
 
     def step(state, images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         model = getattr(state, "model", state).eval()
         with torch.no_grad(), fp32_convs():
-            logits = model(images)
+            logits = _eval_logits(model, images)
         if isinstance(logits, (list, tuple)):
             logits = logits[0]
-        return _mesh.all_sum(seg_metrics.confusion_matrix(logits.argmax(1), labels,
-                                                          num_classes))
+        cm = seg_metrics.confusion_matrix(logits.argmax(1), labels, num_classes)
+        return _mesh.all_sum(_mesh.spatial_sum(cm))
 
     return step if mesh is None else _mesh.shard_eval_step(step, mesh)
+
+
+def _eval_logits(model: nn.Module, images: torch.Tensor):
+    """The eval forward: on the H stripes of the active spatial mesh where
+    the step runs over one (`parallel.mesh.over(mesh, spatial=True)`)."""
+    m = _mesh.active_spatial()
+    if m is None:
+        return model(images)
+    if not isinstance(model, NestedUNet):
+        raise NotImplementedError(f"{type(model).__name__} on H stripes: only the "
+                                  f"custom-encoder NestedUNet runs on a spatial mesh; the model "
+                                  f"zoo is ROADMAP A15e")
+    st = spatial.stripes_of(images.shape[2], m.spatial_rank, m.spatial_group, m.spatial_size,
+                            images.device)
+    return striped_forward(model, images, st)
