@@ -182,6 +182,20 @@ Phases; any failure exits non-zero and prints no result line:
      qconv launches and peak memory per rank; ms per batch at S = 1, 2, 4
      and the
      transport's share (processes sharing one card: not a scaling figure)
+ 13. the spatial train step (`phase_spatial_train`, after phase 12), with
+     phase 12's harness: the full-width 3-class NestedUNet with deep
+     supervision, 3class_advanced (class weights, accumulation 2), one
+     optimizer step of two micro-steps at 512^2 over 1 x 2 (global b=2) in
+     fp32, bf16 and fp32 with remat and over 2 x 2 (global b=4) in fp32,
+     through `make_train_step(mesh=...)` against `make_train_step` in the
+     main process on the same card and batch: every rank's metrics and
+     state equal; fp32 loss and parts within 1e-4 relative, grad norm
+     1e-3, BN statistics 1e-5, the gradient as close to the float64 step's
+     as twice the one-process fp32 step's own distance (each printed); bf16
+     within twice the one-process step's own bf16-vs-fp32 distance; remat
+     against no remat at the fp32 gates; ms per micro-step at S = 1 and 2,
+     peak memory per rank against the one-process step, the collectives'
+     share of a micro-step
 Then, on the last two lines, the kernels' JSON record and
 {"ok": true, "device": {...}}.
 
@@ -3164,23 +3178,29 @@ def _logits_spy(captured: list):
     return lambda: setattr(stages, "run_pipeline", real)
 
 
+def _timed_collective(totals, name, module, attr: str):
+    """Wrap `module.attr` (a collective) to add its host time, between two
+    synchronizes, to totals[name]; returns the restore function."""
+    real = getattr(module, attr)
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(*a, **k)
+        torch.cuda.synchronize()
+        totals[name] += time.perf_counter() - t
+        return out
+
+    setattr(module, attr, timed)
+    return lambda: setattr(module, attr, real)
+
+
 def _timed_transport(totals: list):
     """Wrap `parallel.spatial.all_gather` to add its host time, between two
     synchronizes, to totals[0]; returns the restore function."""
     from unet_tpu_torch.parallel import spatial
 
-    real = spatial.all_gather
-
-    def timed(buf, group, n):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = real(buf, group, n)
-        torch.cuda.synchronize()
-        totals[0] += time.perf_counter() - t
-        return out
-
-    spatial.all_gather = timed
-    return lambda: setattr(spatial, "all_gather", real)
+    return _timed_collective(totals, 0, spatial, "all_gather")
 
 
 def _int8_stripes_check(mesh, cfg, frames, device) -> int:
@@ -3449,6 +3469,323 @@ def phase_spatial(card="", device="cuda", H=448, W=800, b=8, high_res_b=2, nativ
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the spatial train step (ranks of one gloo group on one card)
+# ---------------------------------------------------------------------------
+
+# (name, (n_data, n_spatial), model dtype, remat): one optimizer step of two
+# micro-steps each, the global batch 2 per data slice
+SPATIAL_TRAIN_RUNS = (("fp32", (1, 2), "float32", False), ("bf16", (1, 2), "bfloat16", False),
+                      ("fp32_remat", (1, 2), "float32", True), ("fp32", (2, 2), "float32", False))
+# the fp32 gradient's gate, of its norm: the striped step's distance from the
+# one-process step computed in float64 (its function, exactly) within twice
+# the one-process fp32 step's own, and at least this. Two fp32 runs of the
+# same step differ by about their own rounding (PERF.md §6): cuDNN's
+# fp32 algorithms, and a ReLU or max-pool input within rounding of its kink
+# switches its gradient
+SPATIAL_TRAIN_GRAD = 1e-4
+
+
+def _flat(tensors) -> torch.Tensor:
+    return torch.cat([t.detach().double().cpu().reshape(-1) for t in tensors])
+
+
+def _digest(t: torch.Tensor) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().contiguous().view(torch.uint8).numpy()).hexdigest()
+
+
+def _spatial_train_steps(mesh, images, labels, dtype: str, remat: bool, device, reps: int,
+                         timed: bool = False) -> dict:
+    """Two micro-steps (one optimizer step) of the 3class_advanced step on
+    `seeded_train_model(dtype, remat)` over `mesh` (its block of the global
+    batch; None: the whole batch in this process, `dtype` float64 making
+    the parameters float64 too): the metrics, the first micro-step's
+    gradient (MultiSteps' accumulator) and the BN statistics after both,
+    on the CPU in float64; the step's peak memory (above what was live
+    before it); then ms per micro-step, the median of `reps` micro-steps
+    each between synchronizes, and with `timed` `reps` more with the
+    collectives' host time summed (`_timed_collective`): ms per micro-step
+    in the all-gathers of the transport and in the all-reduces."""
+    import torch.distributed as dist
+
+    from unet_tpu_torch.parallel import spatial
+    from unet_tpu_torch.parallel import put_batch
+    from unet_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    loss, optim = _advanced_recipe()
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    f64 = dtype == "float64"
+    model = seeded_train_model(dtype="float32" if f64 else dtype, remat=remat)
+    if f64:
+        model = model.double()
+        model.dtype = torch.float64
+    state = create_train_state(model, optim, device)
+    step = make_train_step(loss, mesh=mesh)
+    if mesh is None:
+        x, y = torch.from_numpy(images).to(device), torch.from_numpy(labels).to(device)
+    else:
+        x, y = put_batch(mesh, images, labels, local=False)
+    x, y = x.to(torch.float64 if f64 else torch.float32).permute(0, 3, 1, 2).contiguous(), y.long()
+    metrics, grads = [], None
+    for i in range(2):
+        state, m = step(state, x, y)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            grads = _flat(state.acc_grads)
+    stats = _flat(v for k, v in state.model.state_dict().items() if "running" in k)
+    params = _flat(state.params)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30 if cuda else None
+    sync = torch.cuda.synchronize
+
+    def micro_ms():
+        if mesh is not None:
+            dist.barrier()
+        sync()
+        t = time.perf_counter()
+        step(state, x, y)
+        sync()
+        return (time.perf_counter() - t) * 1e3
+
+    ms = [micro_ms() for _ in range(reps)]
+    out = dict(metrics=metrics, grads=grads, stats=stats, params=params, peak_gib=peak, ms=ms)
+    if timed:
+        totals = {"all_gather (transport)": 0.0, "all_reduce": 0.0}
+        restores = [_timed_collective(totals, "all_gather (transport)", spatial, "all_gather"),
+                    _timed_collective(totals, "all_reduce", dist, "all_reduce")]
+        try:
+            for _ in range(reps):
+                micro_ms()
+        finally:
+            for r in restores:
+                r()
+        out["collective_ms"] = {k: v * 1e3 / reps for k, v in totals.items()}
+    del state, step, x, y
+    return out
+
+
+def _spatial_train_rank(rank: int, world: int, store: str, path: str, mem_frac: float) -> None:
+    """One rank of `phase_spatial_train`'s gloo group: every run of
+    SPATIAL_TRAIN_RUNS whose mesh has `world` ranks, through
+    `make_train_step(mesh=...)` on this rank's block of the global batch
+    (`_spatial_train_steps`). The gradient, parameters and statistics
+    travel as digests, and whole from the group's first rank only. Written
+    to path.rank<r>."""
+    import torch.distributed as dist
+
+    from unet_tpu_torch import parallel
+
+    plan = torch.load(path, weights_only=False)
+    device = plan["device"]
+    if device == "cpu":   # a rehearsal: nothing to synchronize
+        torch.cuda.synchronize = lambda *a, **k: None
+    else:
+        torch.cuda.set_per_process_memory_fraction(mem_frac, 0)
+    torch.set_num_threads(plan["threads"])
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+    try:
+        meshes, res = {}, []
+        for name, shape, dtype, remat in SPATIAL_TRAIN_RUNS:
+            if shape[0] * shape[1] != world:
+                continue
+            if shape not in meshes:
+                meshes[shape] = parallel.make_mesh(*shape, device=plan["mesh_device"])
+            mesh = meshes[shape]
+            images, labels = plan["batches"][2 * shape[0]]
+            r = _spatial_train_steps(mesh, images, labels, dtype, remat, mesh.device,
+                                     plan["reps"], timed=True)
+            for k in ("grads", "params", "stats"):
+                r[f"{k}_digest"] = _digest(r[k])
+            if rank:
+                r["grads"] = r["params"] = None
+            res.append(dict(r, name=name, shape=shape))
+        torch.save(res, f"{path}.rank{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def _train_dist(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).norm() / want.norm())
+
+
+def phase_spatial_train(card="", device="cuda", size=512, reps=3, grad_gate=SPATIAL_TRAIN_GRAD):
+    """The spatial train step (phase 13): the full-width 3-class NestedUNet
+    with deep supervision (`seeded_train_model`), 3class_advanced's loss and
+    optimizer (class weights, accumulation 2), one optimizer step of two
+    micro-steps at size^2, over 1 x 2 (global b=2) in fp32, bf16 and fp32
+    with remat and over 2 x 2 (global b=4) in fp32: ranks of one gloo group
+    on one card, each its own process capped at its share of the free
+    memory, the kernels built before they start (the step launches none).
+    Each run against `make_train_step` in this process on the same card and
+    global batch:
+      * every rank's metrics, gradient, parameters and BN statistics equal
+        bit for bit (digests)
+      * fp32: loss and parts within 1e-4 relative, grad norm 1e-3, BN
+        statistics 1e-5; the gradient's distance from the one-process step
+        in float64 within twice the one-process fp32 step's own (and at
+        least `grad_gate` of its norm), printed beside its distance from
+        the one-process fp32 step
+      * bf16: the gradient and BN statistics within twice the one-process
+        step's own bf16-vs-fp32 distance (RMS), the scalars within
+        TRAIN_BF16_RTOL of the fp32 step
+      * remat against the striped step without it, at the fp32 gates
+    ms per micro-step at S = 1 (this process) and S = 2 (rank 0, median of
+    `reps`, each micro-step between a barrier and synchronizes), the peak
+    memory per rank against the one-process step's, and the collectives'
+    share of a micro-step (host time inside the all-gathers of the
+    transport and the all-reduces, between synchronizes, in `reps` more).
+    Processes that share one card: not a scaling figure. Returns the
+    record."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from unet_tpu_torch import _build
+
+    if device != "cpu":
+        _build.build_all(["cc_propagate", "nlm", "qconv"])
+        torch.cuda.empty_cache()
+    t0 = time.time()
+    batches = {b: _train_batch(b, size, seed=95 + b) for b in (2, 4)}
+    # the references in this process, S = 1
+    want = {}
+    for name, shape, dtype, remat in SPATIAL_TRAIN_RUNS:
+        b = 2 * shape[0]
+        for key in ((dtype, remat, b), ("float32", False, b), ("float64", False, b)):
+            if key not in want:   # float64: the fp32 step's function, exactly
+                want[key] = _spatial_train_steps(None, *batches[b], *key[:2], device,
+                                                 0 if key[0] == "float64" else reps)
+    rec = dict(backend="gloo", device=device, size=size, runs={})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spatial_train_") as tmp:
+        path = os.path.join(tmp, "plan.pt")
+        torch.save(dict(batches=batches, device=device, reps=reps,
+                        threads=torch.get_num_threads() if device == "cpu" else 2,
+                        mesh_device="cpu" if device == "cpu" else "cuda:0"), path)
+        ranks = {}
+        for world in (2, 4):
+            t, mem_frac = time.time(), 1.0
+            if device != "cpu":
+                torch.cuda.empty_cache()
+                free, total = torch.cuda.mem_get_info()
+                mem_frac = 0.9 * free / world / total
+                _log(f"spatial train: {free / 2 ** 30:.1f} of {total / 2 ** 30:.1f} GiB free; "
+                     f"each of {world} ranks may hold {mem_frac * total / 2 ** 30:.1f} GiB")
+            mp.start_processes(_spatial_train_rank,
+                               args=(world, os.path.join(tmp, f"store{world}"), path, mem_frac),
+                               nprocs=world, start_method="spawn")
+            ranks[world] = [torch.load(f"{path}.rank{r}", weights_only=False)
+                            for r in range(world)]
+            for r in range(world):
+                os.remove(f"{path}.rank{r}")
+            _log(f"spatial train: {world} ranks on {device} in {time.time() - t:.1f} s")
+    runs = {}
+    for world, per_rank in ranks.items():
+        for i, r0 in enumerate(per_rank[0]):
+            name, shape = r0["name"], r0["shape"]
+            what = f"spatial train {name} over {shape[0]} x {shape[1]}"
+            for r, res in enumerate(per_rank):
+                got = res[i]
+                if got["metrics"] != r0["metrics"] or any(
+                        got[f"{k}_digest"] != r0[f"{k}_digest"] for k in ("grads", "params", "stats")):
+                    raise AssertionError(f"{what}: rank {r}'s metrics or state differ from rank 0's")
+            runs[f"{name} {shape[0]}x{shape[1]}"] = (name, shape, i, per_rank)
+    for key, (name, shape, i, per_rank) in runs.items():
+        r0 = per_rank[0][i]
+        what = f"spatial train {key}"
+        dtype, remat = {n: (d, rm) for n, _, d, rm in SPATIAL_TRAIN_RUNS}[name]
+        b = 2 * shape[0]
+        one = want[dtype, remat, b]
+        check = {}
+        if dtype == "float32":
+            exact = want["float64", False, b]["grads"]
+            for m, (g, w) in enumerate(zip(r0["metrics"], one["metrics"])):
+                for k, v in w.items():
+                    tol = TRAIN_RTOL.get(k)
+                    if tol is not None and abs(g[k] - v) > tol * abs(v):
+                        raise AssertionError(f"{what}: micro-step {m} {k} {g[k]} vs one process "
+                                             f"{v} (rtol {tol})")
+            check = dict(grad=_train_dist(r0["grads"], one["grads"]),
+                         grad_vs_float64=_train_dist(r0["grads"], exact),
+                         one_process_grad_vs_float64=_train_dist(one["grads"], exact),
+                         stats=float((r0["stats"] - one["stats"]).abs().max()),
+                         loss_rel=abs(r0["metrics"][0]["loss"] / one["metrics"][0]["loss"] - 1),
+                         grad_norm_rel=abs(r0["metrics"][0]["grad_norm"]
+                                           / one["metrics"][0]["grad_norm"] - 1))
+            if check["stats"] > TRAIN_STATS_ATOL:
+                raise AssertionError(f"{what}: BN statistics {check['stats']} > {TRAIN_STATS_ATOL}")
+            gate = max(grad_gate, 2 * check["one_process_grad_vs_float64"])
+            if check["grad_vs_float64"] > gate:
+                raise AssertionError(f"{what}: gradient {check['grad_vs_float64']:.3e} of its norm "
+                                     f"from the float64 step, over {gate:.3e} (twice the "
+                                     f"one-process fp32's {check['one_process_grad_vs_float64']:.3e}"
+                                     f", at least {grad_gate}); {check['grad']:.3e} from the "
+                                     f"one-process fp32")
+        else:
+            f32 = want["float32", False, b]
+            rms = lambda a, c: float((a - c).square().mean().sqrt())
+            for k in ("grads", "stats"):
+                check[k] = dict(stripes=rms(r0[k], f32[k]), one_process=rms(one[k], f32[k]))
+                if check[k]["stripes"] > 2 * check[k]["one_process"]:
+                    raise AssertionError(f"{what}: {k} {check[k]['stripes']:.3e} (RMS) from the "
+                                         f"fp32 step, over twice the one-process bf16's "
+                                         f"{check[k]['one_process']:.3e}")
+            for k in TRAIN_RTOL:
+                d = abs(r0["metrics"][0][k] - f32["metrics"][0][k])
+                if d > TRAIN_BF16_RTOL * abs(f32["metrics"][0][k]):
+                    raise AssertionError(f"{what}: {k} {r0['metrics'][0][k]} vs fp32 "
+                                         f"{f32['metrics'][0][k]} (rtol {TRAIN_BF16_RTOL})")
+        if name == "fp32_remat":
+            _, _, j, plain_ranks = runs[f"fp32 {shape[0]}x{shape[1]}"]
+            plain = plain_ranks[0][j]
+            check["vs_no_remat"] = dict(grad=_train_dist(r0["grads"], plain["grads"]),
+                                        stats=float((r0["stats"] - plain["stats"]).abs().max()))
+            for k in TRAIN_RTOL:
+                if abs(r0["metrics"][0][k] - plain["metrics"][0][k]) > TRAIN_RTOL[k] * abs(
+                        plain["metrics"][0][k]):
+                    raise AssertionError(f"{what}: {k} differs from the striped step without remat")
+            if check["vs_no_remat"]["grad"] > grad_gate or \
+                    check["vs_no_remat"]["stats"] > TRAIN_STATS_ATOL:
+                raise AssertionError(f"{what}: against no remat {check['vs_no_remat']}")
+        for m in r0["metrics"]:
+            if not all(np.isfinite(v) for v in m.values()):
+                raise AssertionError(f"{what}: non-finite metrics {m}")
+        ms, ms1 = float(np.median(r0["ms"])), float(np.median(one["ms"]))
+        coll = r0["collective_ms"]
+        rows = [dict(rank=r, peak_gib=res[i]["peak_gib"], ms=float(np.median(res[i]["ms"])))
+                for r, res in enumerate(per_rank)]
+        rec["runs"][key] = dict(ms_per_micro_step=ms, ms_runs=r0["ms"], one_process_ms=ms1,
+                                collective_ms=coll, collective_share=sum(coll.values()) / ms,
+                                one_process_peak_gib=one["peak_gib"], per_rank=rows,
+                                loss=r0["metrics"][0]["loss"], **check)
+        peaks = ", ".join("not measured" if row["peak_gib"] is None else f"{row['peak_gib']:.3f}"
+                          for row in rows)
+        one_peak = "not measured" if one["peak_gib"] is None else f"{one['peak_gib']:.3f}"
+        _log(f"{what} (NestedUNet 3-class DS, {size}^2, global b={b}, 3class_advanced, "
+             f"accumulation 2): loss {r0['metrics'][0]['loss']:.7f} vs one process "
+             f"{one['metrics'][0]['loss']:.7f}; "
+             + (f"gradient {check['grad']:.3e} of its norm from the one-process step "
+                f"({check['grad_vs_float64']:.3e} from its float64, the one-process fp32 "
+                f"{check['one_process_grad_vs_float64']:.3e}), BN statistics "
+                f"{check['stats']:.3e}, grad norm {check['grad_norm_rel']:.3e} relative"
+                if dtype == "float32" else
+                f"gradient {check['grads']['stripes']:.3e} (RMS) from the fp32 step "
+                f"(one-process bf16 {check['grads']['one_process']:.3e}), BN statistics "
+                f"{check['stats']['stripes']:.3e} ({check['stats']['one_process']:.3e})")
+             + (f"; against no remat: gradient {check['vs_no_remat']['grad']:.3e}, statistics "
+                f"{check['vs_no_remat']['stats']:.3e}" if "vs_no_remat" in check else "")
+             + f"; {ms:.3f} ms/micro-step (S=1 {ms1:.3f}); collectives "
+             + ", ".join(f"{k} {v:.3f} ms" for k, v in coll.items())
+             + f" = {sum(coll.values()) / ms:.1%} (rank 0); peak per rank {peaks} GiB, one "
+               f"process {one_peak} GiB [{card}]")
+    rec["seconds"] = round(time.time() - t0, 1)
+    return rec
+
+
 @contextlib.contextmanager
 def _deterministic():
     """torch's deterministic algorithms (and cuDNN's), restored on exit."""
@@ -3689,6 +4026,10 @@ def main() -> int:
     # striped steps against build_step
     spatial = phase_spatial(card=card)
 
+    # -- the spatial train step: 1 x 2 and 2 x 2 ranks of one gloo group on
+    # the card against make_train_step
+    spatial_train = phase_spatial_train(card=card)
+
     # the mma.sync kernel has no main-path launch (conv0_0.conv1 takes the c3
     # kernel): its entry holds its time forced at that site, the c3 kernel's
     # yardstick
@@ -3748,6 +4089,7 @@ def main() -> int:
         "engine": engine, "inspect_engine": gate_engine, "config_runs": config_runs,
         "models_b8": mod_timings, "model_checks": mod_checks, "device_trace": trace,
         "train": train, "export": export, "mesh": mesh, "spatial": spatial,
+        "spatial_train": spatial_train,
         "card": card, "seconds": round(time.time() - t_start, 1)}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

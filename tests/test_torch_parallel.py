@@ -9,6 +9,7 @@ is missing from the other's and where one slice holds no valid class at
 all (Dice's fallback decides on the global batch). At one rank the mesh
 step equals the step without a mesh bit for bit."""
 import functools
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -37,10 +38,18 @@ def test_make_mesh_shapes_and_refusals():
         parallel.make_mesh(n_data=2, device="cpu")
     with pytest.raises(ValueError, match="0x2 mesh != 1 ranks"):
         parallel.make_mesh(n_spatial=2, device="cpu")
-    # the spatial axis runs (tests/test_torch_spatial.py); its train step
-    # is ROADMAP A15d
-    with pytest.raises(NotImplementedError, match="A15d"):
-        parallel.shard_train_step(None, mesh, spatial=True)
+    # the spatial axis runs (tests/test_torch_spatial.py,
+    # test_torch_spatial_train.py) and is the default of the train and eval
+    # steps and put_batch, as in the JAX package; on a mesh of one spatial
+    # rank the step runs over the data axis alone, on whole planes
+    from unet_tpu_torch.parallel import mesh as pmesh
+
+    for fn in (parallel.shard_train_step, parallel.shard_eval_step, parallel.put_batch):
+        assert inspect.signature(fn).parameters["spatial"].default is True, fn.__name__
+    assert inspect.signature(parallel.shard_pipeline_step).parameters["spatial"].default is False
+    seen = parallel.shard_train_step(lambda *a: (pmesh.active(), pmesh.active_spatial()),
+                                     mesh, spatial=True)(None, None, None)
+    assert seen == (mesh, None)
     im = parallel.put_batch(mesh, np.ones((2, 32, 4, 3), np.float32), spatial=True)
     assert im.shape == (2, 32, 4, 3)
     # a batch that the data axis does not divide raises; a one-rank mesh

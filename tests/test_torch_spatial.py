@@ -19,8 +19,8 @@ spawned once (`tests/torch_dist.spatial_ranks`) and runs every case:
     step: integer fields bit for bit, float fields within 1e-4
   * the eval step's confusion matrix over 1 x 2 and 2 x 2 against one
     device
-  * the refusals: a model input that leaves a rank under 16 rows, the
-    spatial train step (A15d) and the model zoo (A15e)
+  * the refusals: a model input that leaves a rank under 16 rows, and the
+    model zoo (A15e) in the inspection, train and eval steps
 """
 import jax.numpy as jnp
 import numpy as np
@@ -44,7 +44,7 @@ from unet_tpu_torch.models.convert import state_dict_from_flax
 from unet_tpu_torch.parallel import spatial as sp
 from unet_tpu_torch.pipeline import presets, stages
 from unet_tpu_torch.pipeline.config import ROI, PreprocessCfg
-from unet_tpu_torch.train.loop import TrainRunCfg, train_model
+from unet_tpu_torch.train.loop import train_mesh
 
 PRESET_HW = (96, 128)
 INT_KINDS = "iub"
@@ -286,11 +286,12 @@ def test_spatial_refusals(world2, world4):
     for w, n in ((world2, 2), (world4, 4)):
         for res in w["ranks"]:
             assert "every rank needs at least 16 rows" in res["refuse"][0], (n, res["refuse"])
+            # the zoo and the ResNet50 NestedUNet, train and eval steps alike
+            assert len(res["zoo"]) == 4 and all("A15e" in m for m in res["zoo"]), res["zoo"]
     mesh = parallel.make_mesh(device="cpu")
-    with pytest.raises(NotImplementedError, match="A15d"):
-        parallel.shard_train_step(None, mesh, spatial=True)
-    with pytest.raises(SystemExit, match="A15d"):
-        train_model(NestedUNet(3), None, None, TrainRunCfg(n_spatial=2), device="cpu")
+    # the spatial train step runs (tests/test_torch_spatial_train.py); in one
+    # process TrainRunCfg(n_spatial=2) falls back to the data axis
+    assert train_mesh(2, "cpu", 2).shape == (1, 1)
     cfg = presets.two_stage().replace_in("preprocess", model_size=(32, 32))
     for model in (NestedUNet(3, pretrained_encoder=True), zoo.port_model(
             "simple_unet", zoo.jax_variables("simple_unet", 3, size=32))):

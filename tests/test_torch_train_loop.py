@@ -120,7 +120,9 @@ def test_cli_train_and_evaluate_match_the_jax_evaluate(root, tmp_path, monkeypat
 def test_every_recipe_builds_and_refusals_name_their_items(root, tmp_path, monkeypatch):
     """All ten recipes run through `cli train` (the loop and overfit_test
     stubbed to record what they were given); a --n-devices other than the
-    world size refuses, and the spatial train step names A15d."""
+    world size refuses; `TrainRunCfg(n_spatial=2)` runs, on the data axis
+    alone in one process (n_spatial does not divide a world of one), as the
+    JAX loop falls back."""
     from unet_tpu_torch.train import loop, recipes
 
     seen = {}
@@ -143,11 +145,14 @@ def test_every_recipe_builds_and_refusals_name_their_items(root, tmp_path, monke
         "NestedUNet", torch.bfloat16, "cpu", 2, 0.45)
     assert seen[str(tmp_path / "inspection")][0] == "LightweightNestedUNet"
     # a --n-devices that is not the world size refuses; the spatial train
-    # step names A15d
+    # step runs (tests/test_torch_spatial_train.py), and in one process
+    # n_spatial=2 falls back to the data axis
     with pytest.raises(SystemExit, match="world size is 1"):
         main(["train", "--data-root", root, "--n-devices", "2", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="A15d"):
-        loop.train_model(NestedUNet(3), None, None, TrainRunCfg(n_spatial=2), device="cpu")
+    assert loop.train_mesh(2, "cpu", 2).shape == (1, 1)
+    res = loop.train_model(NestedUNet(3), [], [], TrainRunCfg(
+        n_spatial=2, epochs=0, ckpt_dir=str(tmp_path / "n_spatial")), device="cpu")
+    assert res["epochs_run"] == 0 and res["state"] is not None
 
 
 def test_chip_smoke_train_phase_runs_on_the_cpu(monkeypatch):

@@ -54,13 +54,14 @@ def _mesh():
 # the train and eval steps
 # ---------------------------------------------------------------------------
 
-def train_case(variables, images, labels, mesh=None):
+def train_case(variables, images, labels, mesh=None, dtype=torch.float32):
     """Two micro-steps of 3class_advanced's step (accumulation 2) on the
     NestedUNet with deep supervision and `variables`' weights, over
-    `mesh`'s slice of the global (B, H, W, 3) batch (all of it without a
+    `mesh`'s block of the global (B, H, W, 3) batch (all of it without a
     mesh): each micro-step's metrics, the gradient of the first (MultiSteps'
     accumulator), the BN statistics after both, and the eval's confusion
-    matrix on the same batch."""
+    matrix on the same batch. `dtype` float64: the model, its parameters
+    and the losses in float64."""
     from unet_tpu_torch.models import NestedUNet
     from unet_tpu_torch.models.convert import state_dict_from_flax
     from unet_tpu_torch.parallel import put_batch
@@ -68,13 +69,15 @@ def train_case(variables, images, labels, mesh=None):
 
     model = NestedUNet(3, deep_supervision=True)
     model.load_state_dict(state_dict_from_flax(variables, "nested_unet"), strict=True)
+    model = model.to(dtype)
+    model.dtype = dtype
     state = T.create_train_state(model, T.OptimCfg(**OPTIM), "cpu")
     step = T.make_train_step(T.LossCfg(**LOSS), mesh=mesh)
     if mesh is None:
         x, y = torch.from_numpy(images), torch.from_numpy(labels)
     else:
         x, y = put_batch(mesh, images, labels, local=False)
-    x, y = x.float().permute(0, 3, 1, 2).contiguous(), y.long()
+    x, y = x.to(dtype).permute(0, 3, 1, 2).contiguous(), y.long()
     names = [k for k, _ in model.named_parameters()]
     metrics, grads = [], None
     for i in range(2):
@@ -140,10 +143,13 @@ def pipeline_ranks(calls):
 # the train loop
 # ---------------------------------------------------------------------------
 
-def loop_ranks(root: str, out: str, epochs: int, batch: int):
+def loop_ranks(root: str, out: str, epochs: int, batch: int, n_spatial: int = 1,
+               filters=None):
     """`train_model` of 3class_advanced's loss and optimizer at 32^2 over
-    every rank of the group, augmentation off: the result, the history
-    rank 0 logged, and how many checkpoints this rank wrote."""
+    every rank of the group (`TrainRunCfg.n_spatial`; the NestedUNet at
+    `filters` widths, its own by default), augmentation off: the result,
+    the history rank 0 logged, how many checkpoints this rank wrote, and
+    the model's state after the run."""
     import os
 
     from unet_tpu_torch.data.dataset import REMAP_7_TO_3, SegmentationDataset
@@ -162,15 +168,19 @@ def loop_ranks(root: str, out: str, epochs: int, batch: int):
     val = Loader(ds[1], batch, prefetch=1)
     cfg = loop.TrainRunCfg(epochs=epochs, num_classes=3, image_size=32, target_miou=None,
                            ckpt_dir=out, save_every_epochs=1, seed=5, track_worst_samples=3,
-                           loss=LossCfg(**LOSS), optim=OptimCfg(**dict(OPTIM, total_steps=0)))
+                           n_spatial=n_spatial, loss=LossCfg(**LOSS),
+                           optim=OptimCfg(**dict(OPTIM, total_steps=0)))
     torch.manual_seed(0)
-    res = loop.train_model(NestedUNet(3, deep_supervision=True), train, val, cfg, device="cpu")
+    model = NestedUNet(3, deep_supervision=True) if filters is None else train_net(filters)
+    res = loop.train_model(model, train, val, cfg, device="cpu")
     hist = Path(out) / "training_history.json"
     return dict(best_miou=res["best_miou"], final_miou=res["final_miou"],
                 epochs_run=res["epochs_run"], saved=saved,
                 history=json.loads(hist.read_text())["history"] if hist.exists() else None,
                 worst=json.loads((Path(out) / "worst_samples.json").read_text())
-                if (Path(out) / "worst_samples.json").exists() else None)
+                if (Path(out) / "worst_samples.json").exists() else None,
+                state=None if res["state"] is None else {
+                    k: v.clone() for k, v in res["state"].model.state_dict().items()})
 
 
 # ---------------------------------------------------------------------------
@@ -432,4 +442,193 @@ def spatial_ranks(path):
             res["refuse"].append(None)
         except ValueError as e:
             res["refuse"].append(str(e))
+    res["zoo"] = zoo_refusals(mesh(world // n, n)) if cases["refuse"] else []
+    return res
+
+
+def zoo_refusals(mesh) -> list:
+    """The messages of the train and the eval step (`make_train_step`,
+    `make_eval_step` over `mesh`, its spatial axis) on SimpleUNet and on the
+    ResNet50-encoder NestedUNet: they run only on whole planes."""
+    from unet_tpu_torch.models import NestedUNet, SimpleUNet
+    from unet_tpu_torch.train import trainer as T
+
+    x = torch.zeros((1, 3, 16, 32))
+    y = torch.zeros((1, 16, 32), dtype=torch.long)
+    out = []
+    for model in (SimpleUNet(3), NestedUNet(3, pretrained_encoder=True)):
+        for step in (T.make_train_step(T.LossCfg(), mesh=mesh), T.make_eval_step(3, mesh=mesh)):
+            try:
+                step(T.create_train_state(model, T.OptimCfg(), "cpu"), x, y)
+                out.append("ran")
+            except NotImplementedError as e:
+                out.append(str(e))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the spatial train step
+# ---------------------------------------------------------------------------
+
+def transport_grad_checks(mesh) -> dict:
+    """{check: max abs difference} of parallel.spatial's transport's
+    backward on this rank of `mesh`'s spatial group, in float64: the
+    gradient of a stripe's share of a weighted sum through `exchange` (two
+    tensors, one collective), `halo` with one and two 3x3 convs, `up2x`
+    and `resize_rows` (x2 and x4), against the rows of the unsharded op's
+    gradient; even stripes and stripes whose last one is shorter."""
+    import torch.nn.functional as F
+
+    from unet_tpu_torch.models.unetpp import interpolate_rows, interpolate_slab
+    from unet_tpu_torch.parallel import spatial as sp
+
+    n, i, group = mesh.spatial_size, mesh.spatial_rank, mesh.spatial_group
+    f64 = torch.float64
+    out = {}
+
+    def mine(t, s, e):
+        return t[:, :, s:e].clone().requires_grad_(True)
+
+    for H in (32 * n, 16 * n + 16):
+        bounds = sp.stripe_bounds(H, n)
+        st = sp.Stripes(bounds, i, group)
+        s, e = st.start, st.end
+        x, x2 = _whole((2, 3, H, 5), f64, H), _whole((2, 3, H, 5), f64, H + 1)
+        w, w2 = _whole((2, 3, H, 5), f64, H + 2), _whole((2, 3, H, 5), f64, H + 3)
+        wants = tuple((max(a - 3 - j, 0), min(b + 1 + j, H)) for j, (a, b) in enumerate(bounds))
+        lo, hi = wants[i]
+        xa, xb = mine(x, s, e), mine(x2, s, e)
+        ga, gb = sp.exchange([xa, xb], st, wants, 2)
+        ((ga * w[:, :, lo:hi]).sum() + (gb * w2[:, :, lo:hi]).sum()).backward()
+        wa, wb = x.clone().requires_grad_(True), x2.clone().requires_grad_(True)
+        sum((wa[:, :, l:h] * w[:, :, l:h]).sum() + (wb[:, :, l:h] * w2[:, :, l:h]).sum()
+            for l, h in wants).backward()
+        out[f"exchange H{H}"] = max(float((xa.grad - wa.grad[:, :, s:e]).abs().max()),
+                                    float((xb.grad - wb.grad[:, :, s:e]).abs().max()))
+        k1, k2 = _whole((4, 3, 3, 3), f64, H + 4), _whole((3, 4, 3, 3), f64, H + 5)
+        for r, op in ((1, lambda t: F.conv2d(t, k1, padding=1)),
+                      (2, lambda t: F.conv2d(F.conv2d(t, k1, padding=1), k2, padding=1))):
+            xs = mine(x, s, e)
+            y = sp.halo(op, [xs], st, r, 2)
+            wy = _whole((2,) + tuple(y.shape[1:2]) + (H, 5), f64, H + 6 + r)
+            (y * wy[:, :, s:e]).sum().backward()
+            xw = x.clone().requires_grad_(True)
+            (op(xw) * wy).sum().backward()
+            out[f"halo conv r{r} H{H}"] = float((xs.grad - xw.grad[:, :, s:e]).abs().max())
+        for name, k, fn in (("up2x", 2, lambda t: sp.up2x(t, st, 2, interpolate_rows)),
+                            ("resize_rows x2", 2,
+                             lambda t: sp.resize_rows(t, st, 2, 2, interpolate_slab)),
+                            ("resize_rows x4", 4,
+                             lambda t: sp.resize_rows(t, st, 4, 2, interpolate_slab))):
+            xs = mine(x, s, e)
+            y = fn(xs)
+            wy = _whole((2, 3, k * H, k * 5), f64, H + 9 + k)
+            (y * wy[:, :, k * s:k * e]).sum().backward()
+            xw = x.clone().requires_grad_(True)
+            whole = F.interpolate(xw, scale_factor=k, mode="bilinear", align_corners=True)
+            (whole * wy).sum().backward()
+            out[f"{name} H{H}"] = float((xs.grad - xw.grad[:, :, s:e]).abs().max())
+            out[f"{name} forward H{H}"] = float((y - whole[:, :, k * s:k * e]).detach().abs().max())
+    return out
+
+
+def train_net(filters=NARROW, state=None, seed: int = 0, dtype=torch.float32,
+              remat: bool = False):
+    """The 3-class NestedUNet with deep supervision at `filters` widths in
+    train mode: `state`'s weights, else flax's initialisation drawn with
+    `seed` (train.trainer.flax_init). `dtype` float64: the parameters too."""
+    from unet_tpu_torch.models import unetpp
+    from unet_tpu_torch.train.trainer import flax_init
+
+    saved, unetpp.NB_FILTER = unetpp.NB_FILTER, tuple(filters)
+    try:
+        model = unetpp.NestedUNet(3, deep_supervision=True, dtype=dtype, remat=remat)
+    finally:
+        unetpp.NB_FILTER = saved
+    if state is None:
+        flax_init(model, seed)
+    else:
+        model.load_state_dict(state)
+    return model.double() if dtype == torch.float64 else model
+
+
+def spatial_train_case(case: dict, mesh=None) -> dict:
+    """Two micro-steps of the train step (td.OPTIM: accumulation 2, sample
+    losses tracked) on `train_net(**case["net"])` with the loss
+    `case["loss"]` (LossCfg kwargs), over this rank's block of the global
+    (B, H, W, 3) batch (`put_batch(local=False)`; all of it without a mesh):
+    each micro-step's metrics, the first one's gradient (MultiSteps'
+    accumulator), the parameters and BN statistics after both, the eval's
+    confusion matrix on the batch, and the Dice of the first micro-step's
+    main logits against the labels of this block alone (no mesh: what a
+    per-stripe Dice would give)."""
+    from unet_tpu_torch.models import losses as L
+    from unet_tpu_torch.parallel import put_batch
+    from unet_tpu_torch.train import trainer as T
+
+    model = train_net(**case["net"])
+    state = T.create_train_state(model, T.OptimCfg(**OPTIM), "cpu")
+    step = T.make_train_step(T.LossCfg(**case["loss"]), track_sample_loss=True, mesh=mesh)
+    images, labels = case["images"], case["labels"]
+    if mesh is None:
+        x, y = torch.from_numpy(images), torch.from_numpy(labels)
+    else:
+        x, y = put_batch(mesh, images, labels, local=False)
+    f64 = case["net"].get("dtype") == torch.float64
+    x, y = x.to(torch.float64 if f64 else torch.float32).permute(0, 3, 1, 2).contiguous(), y.long()
+    seen = []
+    hook = model.final.register_forward_hook(lambda m, i, o: seen.append(o.detach()))
+    names = [k for k, _ in model.named_parameters()]
+    metrics, grads = [], None
+    for i in range(2):
+        state, m = step(state, x, y)
+        metrics.append({k: v.clone() for k, v in m.items()})
+        if i == 0:
+            grads = {k: g.clone() for k, g in zip(names, state.acc_grads)}
+    hook.remove()
+    sd = model.state_dict()
+    return dict(metrics=metrics, grads=grads,
+                stats={k: v.clone() for k, v in sd.items() if "running" in k},
+                params={k: v.clone() for k, v in model.named_parameters()},
+                cm=T.make_eval_step(3, mesh=mesh)(state, x, y),
+                local_dice=float(L.dice_loss(seen[0].float(), y)))
+
+
+def spatial_train_ranks(path):
+    """Every case saved at `path` on every rank of the group, one mesh per
+    shape: {"transport": [n_spatial...], "steps": [((n_data, n_spatial),
+    case of spatial_train_case)...], "jax": [((n_data, n_spatial),
+    (variables, images, labels))...] through `train_case` (the full-width
+    model; the gradient on the mesh's first rank only, a digest of the
+    parameters on every rank), "loop": [(root, out, epochs, batch,
+    n_spatial, filters)...] through `loop_ranks`, "mesh_of": [(batch,
+    n_spatial)...] the shape `train.loop.train_mesh` picks}."""
+    import hashlib
+
+    from unet_tpu_torch.parallel import make_mesh
+    from unet_tpu_torch.train.loop import train_mesh
+
+    cases = torch.load(path, weights_only=False)
+    world = dist.get_world_size()
+    meshes = {}
+
+    def mesh(shape):
+        if shape not in meshes:
+            meshes[shape] = make_mesh(*shape, device="cpu")
+        return meshes[shape]
+
+    res = {"transport": [transport_grad_checks(mesh((world // n, n))) for n in cases["transport"]],
+           "steps": [spatial_train_case(case, mesh(shape)) for shape, case in cases["steps"]],
+           "jax": [], "loop": [], "mesh_of": []}
+    for shape, (variables, images, labels) in cases.get("jax", []):
+        r = train_case(variables, images, labels, mesh(shape))
+        flat = torch.cat([v.reshape(-1) for v in r["grads"].values()])
+        r["grads_digest"] = hashlib.sha256(flat.numpy().tobytes()).hexdigest()
+        if dist.get_rank():
+            r["grads"] = None
+        res["jax"].append(r)
+    for batch, n_spatial in cases.get("mesh_of", []):
+        res["mesh_of"].append(train_mesh(batch, "cpu", n_spatial).shape)
+    for args in cases.get("loop", []):
+        res["loop"].append(loop_ranks(*args))
     return res

@@ -63,8 +63,8 @@ def _no_stat_updates():
         _recompute.active = False
 
 
-def remat(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """`block(x)` with its activations recomputed in the backward pass
+def remat(block: nn.Module, x: torch.Tensor, *args) -> torch.Tensor:
+    """`block(x, *args)` with its activations recomputed in the backward pass
     (`torch.utils.checkpoint`, non-reentrant), the counterpart of flax's
     `nn.remat(ConvBlock)` (unet_tpu/models/unetpp.py:45-56). The recompute
     runs BatchNorm in train mode again; it leaves the running statistics as
@@ -79,7 +79,7 @@ def remat(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
     names = list(state)
 
     def run(t, *tensors):
-        return functional_call(block, dict(zip(names, tensors)), (t,))
+        return functional_call(block, dict(zip(names, tensors)), (t,) + args)
 
     return checkpoint(run, x, *state.values(), use_reentrant=False,
                       context_fn=lambda: (contextlib.nullcontext(), _no_stat_updates()))
@@ -88,7 +88,7 @@ def remat(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
 class BatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d in eval mode. In train mode flax's BatchNorm
     (flax.linen.BatchNorm with use_running_average=False and its default
-    use_fast_variance=True): in float32 whatever the input's type, the
+    use_fast_variance=True): in float32 at least whatever the input's type, the
     batch's mean and the variance max(0, E[x^2] - E[x]^2), from the sums
     of x and x^2 over the global batch under a mesh (parallel.mesh.all_sum,
     the identity without one; a one-rank mesh computes what no mesh
@@ -99,18 +99,28 @@ class BatchNorm2d(nn.BatchNorm2d):
     mean is large against its spread, this variance differs from the
     two-pass one of F.batch_norm, whose backward differs too.
     `momentum=None` keeps torch's cumulative average. The output has the
-    input's type."""
+    input's type.
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    `rows` (offset, count): the statistics take only those rows of x, the
+    rank's own rows of an H stripe's halo slab (`unetpp.striped_forward`),
+    their count reduced with the sums (stripes may be uneven); every row is
+    normalised with them."""
+
+    def forward(self, x: torch.Tensor, rows=None) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        own = xf if rows is None else xf.narrow(2, *rows)
         # sums of x and x^2, over the global batch under a mesh; squares as
         # jax's lax.square, whose derivative 2 * x * g is one product (x *
         # x's two paths add up in another order)
-        sums = all_sum(torch.stack([xf.sum(dim=(0, 2, 3)),
-                                    torch.square(xf).sum(dim=(0, 2, 3))]))
-        n = float(xf.numel() // xf.shape[1] * data_size())
+        sums = [own.sum(dim=(0, 2, 3)), torch.square(own).sum(dim=(0, 2, 3))]
+        if rows is None:
+            sums = all_sum(torch.stack(sums))
+            n = float(xf.numel() // xf.shape[1] * data_size())
+        else:
+            sums = all_sum(torch.stack(sums + [torch.full_like(sums[0], own.numel() // own.shape[1])]))
+            n = sums[2].detach()
         mean = sums[0] / n
         var = torch.clamp(sums[1] / n - torch.square(mean), min=0.0)
         if self.track_running_stats and not _recomputing():
@@ -122,16 +132,17 @@ class BatchNorm2d(nn.BatchNorm2d):
                 self.running_var.mul_(1 - m).add_(var, alpha=m)
         mul = torch.rsqrt(var + self.eps)
         if self.weight is not None:
-            mul = mul * self.weight.float()
+            mul = mul * self.weight.to(xf.dtype)
         y = (xf - mean[:, None, None]) * mul[:, None, None]
         if self.bias is not None:
-            y = y + self.bias.float()[:, None, None]
+            y = y + self.bias.to(xf.dtype)[:, None, None]
         return y.to(x.dtype)
 
 
 class ConvBlock(nn.Module):
     """conv3x3 -> BN -> ReLU, twice — the reference's basic block
-    (reference src/models/unetpp.py:13-26); BatchNorm eps 1e-5."""
+    (reference src/models/unetpp.py:13-26); BatchNorm eps 1e-5. `rows`:
+    the train-mode statistics' rows (`BatchNorm2d`)."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
@@ -140,9 +151,9 @@ class ConvBlock(nn.Module):
         self.conv2 = nn.Conv2d(cout, cout, 3, padding=1)
         self.bn2 = BatchNorm2d(cout, eps=1e-5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.bn1(self.conv1(x)))
-        return F.relu(self.bn2(self.conv2(x)))
+    def forward(self, x: torch.Tensor, rows=None) -> torch.Tensor:
+        x = F.relu(self.bn1(self.conv1(x), rows))
+        return F.relu(self.bn2(self.conv2(x), rows))
 
 
 class DoubleConv(nn.Sequential):

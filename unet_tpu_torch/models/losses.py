@@ -11,6 +11,12 @@ and their combinations, as functions.
     (parallel.mesh.all_sum; the identity without one): a ratio of such sums
     and Dice's fallback are the global batch's, as GSPMD gives the JAX
     package's jitted losses
+  * on H stripes (a spatial mesh) Dice's and Tversky's per-(sample, class)
+    sums are each sample's over its whole plane (`spatial_sum`) before
+    their ratio, so that `skip_empty` and the fallback decide on whole
+    samples; their mean over the samples sums over the data axis
+    (`data_sum`); focal and cross-entropy divide by reduced counts.
+    Without a spatial mesh every loss computes what it did without one
 """
 from __future__ import annotations
 
@@ -19,7 +25,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from unet_tpu_torch.parallel.mesh import all_sum, data_size
+from unet_tpu_torch.parallel.mesh import active_spatial, all_sum, data_size, data_sum, spatial_sum
 
 
 def _flatten_probs(logits: torch.Tensor, labels: torch.Tensor):
@@ -41,8 +47,9 @@ def dice_loss(logits: torch.Tensor, labels: torch.Tensor, smooth: float = 1e-5,
     softmax probabilities, optional background exclusion, empty-class
     skipping and class weights, with the all-empty fallback."""
     p, t = _flatten_probs(logits, labels)
-    inter = (p * t).sum(2)                      # (N, C)
-    union = p.sum(2) + t.sum(2)
+    # (N, C), each sample's over its whole plane
+    inter, psum, tsum = spatial_sum(torch.stack([(p * t).sum(2), p.sum(2), t.sum(2)])).unbind(0)
+    union = psum + tsum
     dice = (2 * inter + smooth) / (union + smooth)
 
     n, c = dice.shape
@@ -52,19 +59,19 @@ def dice_loss(logits: torch.Tensor, labels: torch.Tensor, smooth: float = 1e-5,
         valid[:, 0] = False
         nonbg[:, 0] = False
     if skip_empty:
-        valid = valid & (t.sum(2) > 0)
+        valid = valid & (tsum > 0)
     # the fallback (losses.py:69-73), where no sample of the global batch
     # has a valid class
-    sel = torch.where(all_sum(valid.sum()) == 0, nonbg, valid)
+    sel = torch.where(data_sum(valid.sum()) == 0, nonbg, valid)
 
     zero = torch.zeros((), dtype=dice.dtype, device=dice.device)
     if class_weights is not None:
         w = torch.where(sel, _weights(class_weights, dice)[None, :].expand(n, c), zero)
-        s = all_sum(torch.stack([(dice * w).sum(), w.sum()]))
+        s = data_sum(torch.stack([(dice * w).sum(), w.sum()]))
         mean = s[0] / (s[1] + 1e-6)
     else:
-        s = all_sum(torch.stack([torch.where(sel, dice, zero).sum(),
-                                 sel.sum().to(dice.dtype)]))
+        s = data_sum(torch.stack([torch.where(sel, dice, zero).sum(),
+                                  sel.sum().to(dice.dtype)]))
         mean = s[0] / s[1].clamp(min=1)
     return 1.0 - mean
 
@@ -92,13 +99,12 @@ def tversky_loss(logits: torch.Tensor, labels: torch.Tensor, alpha: float = 0.3,
     """TverskyLoss (reference losses.py:143-200); unlike dice, empty classes
     are not skipped."""
     p, t = _flatten_probs(logits, labels)
-    tp = (p * t).sum(2)
-    fp = (p * (1 - t)).sum(2)
-    fn = ((1 - p) * t).sum(2)
+    tp, fp, fn = spatial_sum(torch.stack([(p * t).sum(2), (p * (1 - t)).sum(2),
+                                          ((1 - p) * t).sum(2)])).unbind(0)
     tv = (tp + smooth) / (tp + alpha * fn + beta * fp + smooth)
     if ignore_bg:
         tv = tv[:, 1:]
-    return 1.0 - all_sum(tv.sum()) / float(tv.numel() * data_size())
+    return 1.0 - data_sum(tv.sum()) / float(tv.numel() * data_size())
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -108,6 +114,9 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     logp = F.log_softmax(logits, dim=1)
     nll = -logp.gather(1, labels[:, None])[:, 0]
     if class_weights is None:
+        if active_spatial() is not None:   # stripes may be uneven: the count reduced
+            s = all_sum(torch.stack([nll.sum(), nll.new_tensor(float(nll.numel()))]))
+            return s[0] / s[1]
         return all_sum(nll.sum()) / float(nll.numel() * data_size())
     w = _weights(class_weights, logp)[labels]
     s = all_sum(torch.stack([(nll * w).sum(), w.sum()]))

@@ -138,6 +138,33 @@ def interpolate_rows(slab: torch.Tensor, lo: int, n: int, rows) -> torch.Tensor:
     return y[:, :, rows[0]:rows[1]].contiguous()
 
 
+def interpolate_slab(slab: torch.Tensor, lo: int, n: int, out: int, rows) -> torch.Tensor:
+    """Rows [s, e) = `rows` of the align-corners bilinear resize of an n-row
+    NCHW plane t to `out` rows and out // n times its width
+    (`F.interpolate(t, size=..., mode="bilinear", align_corners=True)`),
+    from `slab`, t's rows [lo, lo + slab rows), which hold every row the
+    output rows read. The rows are taken from the slab alone (no plane of
+    the full height): an H lerp of the two source rows of each output row,
+    then the W resize; in float32 at least and cast back once. The train path's
+    upsample: its autograd reads the slab only; it equals the whole call
+    within float32 rounding, not bit for bit."""
+    s, e = rows
+    scale = (n - 1) / (out - 1) if out > 1 else 0.0
+    src = torch.arange(s, e, dtype=torch.float64) * scale
+    i0 = src.floor().clamp(max=n - 1)
+    t = slab.to(torch.promote_types(slab.dtype, torch.float32))
+    frac = (src - i0).to(t.dtype)
+    i0 = i0.long()
+    i1 = (i0 + 1).clamp(max=n - 1)
+    dev = slab.device
+    top = t.index_select(2, (i0 - lo).to(dev))
+    bot = t.index_select(2, (i1 - lo).to(dev))
+    y = top + (bot - top) * frac.to(dev)[:, None]
+    y = F.interpolate(y, size=(e - s, slab.shape[3] * (out // n)), mode="bilinear",
+                      align_corners=True)
+    return y.to(slab.dtype)
+
+
 class _Striped(nn.Module):
     """`striped_forward` as a module, so that `functional_call` can run it
     on the cast copies of a model whose compute type is not float32."""
@@ -147,33 +174,71 @@ class _Striped(nn.Module):
         self.model = model
         self.stripes = stripes
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor):
         m, st = self.model, self.stripes
+        train = m.training
+        recompute = m.remat and train and torch.is_grad_enabled()
+        outs = {}
 
         def block(name, t):
-            return spatial.halo(getattr(m, name), [t], st.at(t.shape[2]), 2, axis=2)
+            level = st.at(t.shape[2])
+            if not train:
+                return spatial.halo(getattr(m, name), [t], level, 2, axis=2)
+            # the slab's rows [start - 2, end + 2) clipped: BatchNorm's
+            # statistics take the rank's own rows of it
+            rows = (level.start - max(level.start - 2, 0), level.rows)
+            mod = getattr(m, name)
+
+            def op(slab):
+                return remat(mod, slab, rows) if recompute else mod(slab, rows)
+
+            outs[name] = spatial.halo(op, [t], level, 2, axis=2)
+            return outs[name]
 
         def up(t):
+            if train:
+                return spatial.resize_rows(t, st.at(t.shape[2]), 2, 2, interpolate_slab)
             return spatial.up2x(t, st.at(t.shape[2]), 2, interpolate_rows)
 
         y = run_topology(x, block, max_pool2, up, lambda a, b: torch.cat([a, b], 1))
-        return m.final(y)
+        out = m.final(y)
+        if not (train and m.deep_supervision):
+            return out
+
+        def to_input(head, t):
+            level = st.at(t.shape[2])
+            return spatial.resize_rows(head(t), level, st.rows // level.rows, 2, interpolate_slab)
+
+        return [out, to_input(m.ds1_3, outs["conv1_3"]), to_input(m.ds2_2, outs["conv2_2"]),
+                to_input(m.ds3_1, outs["conv3_1"])]
 
 
-def striped_forward(model: NestedUNet, x: torch.Tensor, stripes: spatial.Stripes) -> torch.Tensor:
-    """The eval-mode logits of a custom-encoder NestedUNet on an H stripe:
-    `x` (B, Cin, rows, W) holds the model input's rows [stripes.start,
-    stripes.end); returns the logits' same rows, equal to the whole
-    forward's on one device bit for bit (on the CPU; cuDNN may pick another
-    algorithm for a stripe's shape). Each ConvBlock runs on its halo slab,
-    2 rows each side (`spatial.halo`), the pools on stripes whose bounds are
-    even at every level, BatchNorm and the 1x1 head are row-local, and the
-    decoder's upsample reads the global source rows of its taps
-    (`interpolate_rows`). A collective of the spatial group."""
+def striped_forward(model: NestedUNet, x: torch.Tensor, stripes: spatial.Stripes):
+    """The forward of a custom-encoder NestedUNet on an H stripe: `x` (B,
+    Cin, rows, W) holds the model input's rows [stripes.start,
+    stripes.end); returns the outputs' same rows. A collective of the
+    spatial group. Each ConvBlock runs on its halo slab, 2 rows each side
+    (`spatial.halo`), the pools on stripes whose bounds are even at every
+    level, and the 1x1 heads are row-local.
+
+    Eval mode: the logits, equal to the whole forward's on one device bit
+    for bit (on the CPU; cuDNN may pick another algorithm for a stripe's
+    shape); BatchNorm is row-local and the decoder's upsample reads the
+    global source rows of its taps (`interpolate_rows`).
+
+    Train mode (`train.trainer.make_train_step` under a spatial mesh): the
+    outputs of the whole train-mode forward (with deep supervision [out,
+    ds1_3, ds2_2, ds3_1], the heads resized to the input on their stripes,
+    `spatial.resize_rows`), with autograd through the transport. Each
+    BatchNorm takes its statistics over the rank's own rows of the slab
+    (`BatchNorm2d(rows=...)`) reduced over both axes, and normalises the
+    slab's halo rows with them, so that one exchange a block serves both
+    convs. The upsamples take their rows from the slab alone
+    (`interpolate_slab`). With `remat`, each block is recomputed in the
+    backward and its exchange is not: it stays outside the recomputed
+    region."""
     if model.pretrained_encoder:
         raise NotImplementedError("the ResNet50-encoder NestedUNet on H stripes: ROADMAP A15e")
-    if model.training:
-        raise NotImplementedError("the train-mode forward on H stripes: ROADMAP A15d")
     net = _Striped(model, stripes)
     if next(model.parameters()).dtype != model.dtype:
         state = {f"model.{k}": v for k, v in model._cast_state().items()}

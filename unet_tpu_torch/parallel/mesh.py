@@ -25,23 +25,40 @@ The steps find the mesh through `over(mesh)`, which the `shard_*` wrappers
 enter; outside one, `all_sum` is the identity in the same autograd graph,
 so the one-rank step and the step without a mesh compute the same thing.
 
-The spatial axis (ROADMAP A15c, `parallel.spatial`): an (n_data,
-n_spatial) mesh splits each data slice's model input into H stripes over
-the spatial group. `shard_pipeline_step(spatial=True)` divides the slice's
+The spatial axis (`parallel.spatial`): an (n_data, n_spatial) mesh splits
+each data slice's model input into H stripes over the spatial group.
+`shard_train_step`, `shard_eval_step` and `put_batch` take it by default
+(`spatial=True`, as the JAX package's do; a mesh of one spatial rank is the
+data axis alone). `shard_pipeline_step(spatial=True)` divides the slice's
 frames among the group's ranks, runs everything before and after the
 model on whole frames as `build_step` does, and the model itself on the
 stripes between two re-splits (`pipeline.stages.striped_segment_forward`);
-`shard_eval_step(spatial=True)` runs the eval forward on the stripes of
-`put_batch(spatial=True)` and sums the confusion matrix over both axes.
-The spatial train step (a halo exchange with a backward, stripe-aware
-BatchNorm statistics, loss sums and gradients) is ROADMAP A15d:
-`shard_train_step(spatial=True)` and `TrainRunCfg.n_spatial > 1` raise.
+the eval step runs its forward on the stripes of `put_batch(spatial=True)`
+and sums the confusion matrix over both axes; the train step runs the
+train-mode forward on the stripes (`models.unetpp.striped_forward`, the
+halo rows' gradients sent back to their owners) and reduces:
+  * `all_sum`: a sum over the pixels of the global batch, over every rank
+    of the mesh (BatchNorm's sums and counts, focal and cross-entropy)
+  * `spatial_sum`: a sample's sum over its whole plane, over the spatial
+    group (Dice's and Tversky's per-(sample, class) terms, before their
+    ratio; the per-sample loss)
+  * `data_sum`: a sum of per-sample terms that every rank of a spatial
+    group holds alike, over the data axis (the ratios' mean, Dice's
+    fallback count)
+
+The gradient convention, one for every step: every rank computes the same
+loss from reduced terms, and each reduction's backward sums its gradient
+over the ranks it reduced over, so that every rank's gradient is N = n_data
+x n_spatial times its own share of the global batch's (N = n_data without
+the spatial axis). `mean_grads_` sums the gradients over all N ranks and
+divides by N: every rank ends the step with the one-device gradient of the
+global batch, bit for bit the same on all.
 """
 from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -51,7 +68,6 @@ from unet_tpu_torch.parallel import spatial as _sp
 
 DATA_AXIS = "data"
 SPATIAL_AXIS = "spatial"
-_A15D = "the spatial train step is not ported to unet_tpu_torch yet, ROADMAP A15d"
 
 
 @dataclass(frozen=True, eq=False)
@@ -63,6 +79,7 @@ class Mesh:
     device: torch.device
     ranks: Tuple[int, ...]
     shape: Tuple[int, int]
+    whole_group: Any = None
 
     @property
     def member(self) -> bool:
@@ -97,6 +114,13 @@ class Mesh:
     def spatial_rank(self) -> int:
         """This process's index on the spatial axis."""
         return self.ranks.index(dist.get_rank()) % self.shape[1]
+
+    @property
+    def all_group(self):
+        """The process group of every rank of the mesh."""
+        if self.shape[1] == 1:
+            return self.group
+        return self.spatial_group if self.shape[0] == 1 else self.whole_group
 
 
 _own_group = False
@@ -152,10 +176,13 @@ def make_mesh(n_data: Optional[int] = None, n_spatial: int = 1,
 
     dm = DeviceMesh(dev.type, torch.tensor(ranks).reshape(n_data, n_spatial),
                     mesh_dim_names=(DATA_AXIS, SPATIAL_AXIS))
+    # both axes at once (a collective of every process, as DeviceMesh is)
+    whole = dist.new_group(list(ranks)) if n_data > 1 and n_spatial > 1 else None
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    return Mesh(device_mesh=dm if dist.get_rank() in ranks else None, device=dev,
-                ranks=ranks, shape=(n_data, n_spatial))
+    member = dist.get_rank() in ranks
+    return Mesh(device_mesh=dm if member else None, device=dev, ranks=ranks,
+                shape=(n_data, n_spatial), whole_group=whole if member else None)
 
 
 # ---------------------------------------------------------------------------
@@ -217,35 +244,50 @@ class _AllSum(torch.autograd.Function):
         return g, None
 
 
+def _reduce_group():
+    """The group that `all_sum` and `mean_grads_` reduce over: every rank
+    of the active mesh in a spatial step, else its data axis."""
+    m = active()
+    if m is None:
+        return None
+    return m.all_group if active_spatial() is not None else m.group
+
+
 def all_sum(t: torch.Tensor) -> torch.Tensor:
-    """`t` summed over the active mesh's data axis, with autograd: every
-    rank that computes the same loss from the summed terms then gets W
-    times its slice's share of the gradient, which the gradient mean
-    (`mean_grads_`) divides out."""
+    """`t` summed over the pixels of the global batch, with autograd: over
+    the active mesh's data axis, and in a spatial step over its spatial
+    axis too (see the module's docstring for the gradient's convention)."""
+    m = active()
+    return _AllSum.apply(t, None if m is None else _reduce_group())
+
+
+def data_sum(t: torch.Tensor) -> torch.Tensor:
+    """`t` summed over the active mesh's data axis alone, with autograd: for
+    per-sample terms that every rank of a spatial group holds alike."""
     m = active()
     return _AllSum.apply(t, None if m is None else m.group)
 
 
 def spatial_sum(t: torch.Tensor) -> torch.Tensor:
-    """`t` summed over the spatial axis of the active spatial mesh (`t`
-    itself without one); no autograd."""
+    """`t` summed over the spatial axis of the active spatial mesh, with
+    autograd (`t` itself without one): a sample's sum over its whole
+    plane."""
     m = active_spatial()
     if m is None:
         return t
-    out = t.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, group=m.spatial_group)
-    return out
+    return _AllSum.apply(t, m.spatial_group)
 
 
 def mean_grads_(grads: Sequence[torch.Tensor]) -> None:
-    """Average `grads` in place over the active mesh's data axis (one
-    all-reduce of all of them)."""
+    """Sum `grads` in place over the ranks that `all_sum` reduces over and
+    divide by their number (one all-reduce of all of them)."""
     m = active()
     if m is None or not grads:
         return
+    group = _reduce_group()
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat, group=m.group)
-    flat.div_(float(m.size))
+    dist.all_reduce(flat, group=group)
+    flat.div_(float(dist.get_world_size(group)))
     for g, part in zip(grads, flat.split([g.numel() for g in grads])):
         g.copy_(part.view_as(g))
 
@@ -266,23 +308,21 @@ def all_gather_batch(mesh: Mesh, tree):
 # the steps over the mesh
 # ---------------------------------------------------------------------------
 
-def shard_train_step(train_step, mesh: Mesh, spatial: bool = False):
+def shard_train_step(train_step, mesh: Mesh, spatial: bool = True):
     """The (state, images, labels) train step of `train.trainer.make_train_step`
-    over the mesh: each rank passes its slice of the global batch and keeps
-    a replica of the state; BN statistics, the loss and the gradients are
-    those of the global batch (see the module's docstring). `spatial=True`
-    is ROADMAP A15d and raises."""
-    if spatial:
-        raise NotImplementedError(f"shard_train_step(spatial=True): {_A15D}")
+    over the mesh: each rank passes its block of the global batch (its data
+    slice, and with `spatial` its H stripe of it, from `put_batch`) and
+    keeps a replica of the state; BN statistics, the loss and the gradients
+    are those of the global batch (see the module's docstring)."""
 
     def step(state, images, labels):
-        with over(mesh):
+        with over(mesh, spatial):
             return train_step(state, images, labels)
 
     return step
 
 
-def shard_eval_step(eval_step, mesh: Mesh, spatial: bool = False):
+def shard_eval_step(eval_step, mesh: Mesh, spatial: bool = True):
     """The eval step over the mesh: each rank's slice (with `spatial`, its
     H stripe of the slice, from `put_batch(spatial=True)`, which the
     step's forward runs on), the confusion matrix summed over the mesh (the
@@ -369,15 +409,16 @@ def _spatial_pipeline_step(step_fn, mesh: Mesh):
     return step
 
 
-def put_batch(mesh: Mesh, images, labels=None, spatial: bool = False,
+def put_batch(mesh: Mesh, images, labels=None, spatial: bool = True,
               local: Optional[bool] = None):
     """Host batch -> this rank's block on its device, the arrays' layout
     unchanged. `local` None: a batch is this rank's own data slice
     (`multihost.ProcessShardedLoader`) where the data axis has more than
     one rank, else the global batch; `local=False` takes this rank's slice
-    of a global batch, which the data axis must divide. With `spatial`,
-    of the (B, H, ...) slice this rank's H stripe
-    (`parallel._sp.stripe_bounds`), as `batch_sharding` places a block
+    of a global batch, which the data axis must divide. With `spatial` (the
+    default, as in the JAX package), of the (B, H, ...) slice this rank's
+    H stripe (`parallel.spatial.stripe_bounds`; the whole slice where the
+    spatial axis has one rank), as `batch_sharding` places a block
     (unet_tpu/parallel/mesh.py:42-48)."""
     if local is None:
         local = mesh.size > 1

@@ -22,13 +22,21 @@ does, and several tensors share one collective:
     padding then applies only at the global top and bottom, as in the
     unsharded run
   * `up2x`: the rows of this rank's stripe of a x2 align-corners upsample,
-    from the source rows that its taps read
+    from the source rows that its taps read; `resize_rows` the same for a
+    resize by any integer factor (the deep-supervision heads' resize to
+    the input)
   * the inspection step's two re-splits, `frames_to_stripes` (this rank's
     whole frames -> the H stripe of every frame of the slice) and
     `stripes_to_frames` (back), and `gather_frames`, every rank's outputs
     for its frames on every rank, in frame order
 Each of them is a collective of the spatial group: every rank of it calls
 it, with the same layout.
+
+`exchange`, and so `fetch_rows`, `halo`, `up2x` and `resize_rows`, carry
+gradients where an input requires one: the backward sends the gradient of
+every row a rank received back to the rank that owns the row, which adds
+it into its own rows (`_plan` in reverse, one `all_gather_into_tensor`).
+Without a gradient the forward runs as it is, outside autograd.
 """
 from __future__ import annotations
 
@@ -226,10 +234,18 @@ def exchange(xs: Sequence[torch.Tensor], stripes: Stripes, wants: Bounds,
     """For each striped tensor of `xs` (this rank's rows along `axis`), the
     global rows [lo, hi) = wants[stripes.index], contiguous; `wants` holds
     every rank's request. One collective for all of `xs` (none where no rank
-    asks for another's rows)."""
+    asks for another's rows), and one for their gradients in the backward
+    where one of them requires a gradient."""
+    wants = tuple(wants)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        return list(_Exchange.apply(stripes, wants, axis, *xs))
+    return _exchange(xs, stripes, wants, axis)
+
+
+def _exchange(xs, stripes: Stripes, wants: Bounds, axis: int) -> List[torch.Tensor]:
     s, e = stripes.start, stripes.end
     lo, hi = wants[stripes.index]
-    m, mine, above, below = _plan(stripes.bounds, tuple(wants), stripes.index)
+    m, mine, above, below = _plan(stripes.bounds, wants, stripes.index)
     a, b = max(lo, s), min(hi, e)
     own = [x.narrow(axis, a - s, b - a) if b > a else x.narrow(axis, 0, 0) for x in xs]
     if m == 0:
@@ -250,6 +266,75 @@ def exchange(xs: Sequence[torch.Tensor], stripes: Stripes, wants: Bounds,
             pieces.append(_from_bytes(part[_index(below, dev)], x.dtype, rest).movedim(0, axis))
         out.append(torch.cat(pieces, axis))
     return out
+
+
+def _received(bounds: Bounds, wants: Bounds, j: int) -> List[int]:
+    """The global rows rank j receives from the others, in the order of its
+    `exchange` output (above its stripe, then below)."""
+    s, e = bounds[j]
+    lo, hi = wants[j]
+    return list(range(lo, min(s, hi))) + list(range(max(e, lo), hi))
+
+
+@functools.lru_cache(maxsize=1024)
+def _back_plan(bounds: Bounds, wants: Bounds, index: int):
+    """`_plan` in reverse: k, the most rows a rank received; and for each
+    other rank j, the positions in j's block of k rows of the rows of this
+    rank's stripe that j received, with their stripe-local rows."""
+    recv = [_received(bounds, wants, j) for j in range(len(bounds))]
+    s, e = bounds[index]
+    back = tuple((j, tuple(p for p, r in enumerate(rows) if s <= r < e),
+                  tuple(r - s for r in rows if s <= r < e))
+                 for j, rows in enumerate(recv) if j != index)
+    return max(len(r) for r in recv), tuple(b for b in back if b[1])
+
+
+class _Exchange(torch.autograd.Function):
+    """`exchange` with a backward: each rank sends the gradients of the rows
+    it received (one all-gather of all of them) and adds into its own rows
+    those that other ranks send for them."""
+
+    @staticmethod
+    def forward(ctx, stripes, wants, axis, *xs):
+        ctx.stripes, ctx.wants, ctx.axis = stripes, wants, axis
+        ctx.shapes = [(x.shape, x.dtype, x.device) for x in xs]
+        out = _exchange(xs, stripes, wants, axis)
+        # a view of an input (no row received) is returned as a copy
+        return tuple(o.clone() if o._base is not None else o for o in out)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        st, wants, axis = ctx.stripes, ctx.wants, ctx.axis
+        s, e = st.start, st.end
+        lo, hi = wants[st.index]
+        a, b = max(lo, s), min(hi, e)
+        n_above = max(min(s, hi) - lo, 0)
+        n_below = max(hi - max(e, lo), 0)
+        grads = []
+        for g, (shape, dtype, dev) in zip(gs, ctx.shapes):
+            gx = torch.zeros(shape, dtype=dtype, device=dev)
+            if b > a:
+                gx.narrow(axis, a - s, b - a).copy_(g.narrow(axis, a - lo, b - a))
+            grads.append(gx)
+        k, back = _back_plan(st.bounds, wants, st.index)
+        if k:
+            bufs = []
+            for g in gs:
+                rows = [g.narrow(axis, 0, n_above), g.narrow(axis, hi - lo - n_below, n_below)]
+                sent = torch.cat(rows, axis).movedim(axis, 0)
+                pad = sent.new_zeros((k,) + tuple(sent.shape[1:]))
+                pad[:sent.shape[0]] = sent
+                bufs.append(_to_bytes(pad))
+            got = all_gather(torch.cat(bufs, 1), st.group, st.n)
+            col = 0
+            for gx, buf in zip(grads, bufs):
+                rest = gx.movedim(axis, 0).shape[1:]
+                for j, pos, rows in back:
+                    part = got[j, :, col:col + buf.shape[1]][_index(pos, gx.device)]
+                    gx.index_add_(axis, _index(rows, gx.device),
+                                  _from_bytes(part, gx.dtype, rest).movedim(0, axis))
+                col += buf.shape[1]
+        return (None, None, None) + tuple(grads)
 
 
 def fetch_rows(x: torch.Tensor, lo: int, hi: int, stripes: Stripes, axis: int) -> torch.Tensor:
@@ -274,14 +359,16 @@ def halo(op: Callable[..., torch.Tensor], xs: Sequence[torch.Tensor], stripes: S
     return y.narrow(axis, stripes.start - wants[stripes.index][0], stripes.rows).contiguous()
 
 
-def up_source_rows(n: int, s: int, e: int, margin: int = 1) -> Tuple[int, int]:
-    """The rows of an n-row plane that output rows [s, e) of its 2n-row
-    align-corners upsample read (src = o * (n - 1) / (2n - 1), its floor and
-    the next row), widened by `margin` rows, clipped to [0, n)."""
+def up_source_rows(n: int, s: int, e: int, margin: int = 1, out: int = 0) -> Tuple[int, int]:
+    """The rows of an n-row plane that output rows [s, e) of its `out`-row
+    (2n by default) align-corners resize read (src = o * (n - 1) / (out -
+    1), its floor and the next row), widened by `margin` rows, clipped to
+    [0, n)."""
+    out = out or 2 * n
     if n == 1:
         return 0, 1
-    lo = s * (n - 1) // (2 * n - 1)
-    hi = (e - 1) * (n - 1) // (2 * n - 1) + 2
+    lo = s * (n - 1) // (out - 1)
+    hi = (e - 1) * (n - 1) // (out - 1) + 2
     return max(lo - margin, 0), min(hi + margin, n)
 
 
@@ -292,10 +379,20 @@ def up2x(x: torch.Tensor, src: Stripes, axis: int,
     the striped `x` (layout `src`): `interp(slab, lo, n, (s, e))` computes
     output rows [s, e) of the upsample of the n-row plane whose global rows
     [lo, ...) the slab holds."""
+    return resize_rows(x, src, 2, axis, lambda slab, lo, n, out, rows: interp(slab, lo, n, rows))
+
+
+def resize_rows(x: torch.Tensor, src: Stripes, scale: int, axis: int,
+                interp: Callable[[torch.Tensor, int, int, int, Tuple[int, int]], torch.Tensor]
+                ) -> torch.Tensor:
+    """This rank's rows [scale start, scale end) of an align-corners resize
+    of the striped `x` (layout `src`, n rows) to scale * n rows:
+    `interp(slab, lo, n, scale * n, (s, e))` computes output rows [s, e) of
+    that resize from the slab of global rows [lo, ...)."""
     n = src.height
-    wants = tuple(up_source_rows(n, 2 * s, 2 * e) for s, e in src.bounds)
+    wants = tuple(up_source_rows(n, scale * s, scale * e, out=scale * n) for s, e in src.bounds)
     slab = exchange([x], src, wants, axis)[0]
-    return interp(slab, wants[src.index][0], n, (2 * src.start, 2 * src.end))
+    return interp(slab, wants[src.index][0], n, scale * n, (scale * src.start, scale * src.end))
 
 
 # ---------------------------------------------------------------------------

@@ -10,18 +10,21 @@ label == num_classes, which the confusion matrix drops; `best`, periodic
 target mIoU and early stop. A resume restores `last` and the data's host
 generators, so that it goes on as the unbroken run would have.
 
-Over W ranks (`torchrun --nproc-per-node W`, parallel.mesh) the data axis
-is the largest divisor of the batch size that is at most W (ranks beyond
-it idle); each rank loads only its slice of every train batch
-(parallel.multihost.ProcessShardedLoader), and the steps are those of the
-global batch, so that the logged losses and mIoU, early stop and the
-target decide the same on every rank. The eval loads each global batch,
-pads it, and runs its slice. Rank 0 writes the checkpoints, the history
-and `worst_samples.json`; the others wait at a barrier. With augmentation
-off the run equals the one-device run; with it on, each rank draws its
-slice's augmentation from its own copy of the generator, in another order
-than one process would. `n_spatial > 1` (the spatial train step) is
-ROADMAP A15d.
+Over W ranks (`torchrun --nproc-per-node W`, parallel.mesh) the mesh is
+(n_data, n_spatial), as the JAX package's loop builds it
+(unet_tpu/train/loop.py:46-55): `TrainRunCfg.n_spatial` where it divides
+W, else 1; the data axis the largest divisor of the batch size that is at
+most W / n_spatial (ranks beyond the mesh idle). Each rank loads only its
+data slice of every train batch (parallel.multihost.ProcessShardedLoader;
+the ranks of one spatial group load the same slice) and takes its H
+stripe of it (`put_batch`); the steps are those of the global batch, so
+that the logged losses and mIoU, early stop and the target decide the
+same on every rank. The eval loads each global batch, pads it, and runs
+its block. The mesh's first rank writes the checkpoints, the history and
+`worst_samples.json`; the others wait at a barrier. With augmentation off
+the run equals the one-device run; with it on, each data slice draws its
+augmentation from its own copy of the generator, in another order than
+one process would.
 """
 from __future__ import annotations
 
@@ -87,18 +90,22 @@ def _generators(loader) -> Dict[str, np.random.Generator]:
     return {k: g for k, g in gens.items() if isinstance(g, np.random.Generator)}
 
 
-def train_mesh(batch_size: Optional[int], device: str) -> parallel.Mesh:
-    """The data axis of a run: every rank (torchrun's, or this process
-    alone), cut to the largest divisor of `batch_size` that is at most
-    their number (unet_tpu/train/loop.py:45-55)."""
+def train_mesh(batch_size: Optional[int], device: str, n_spatial: int = 1) -> parallel.Mesh:
+    """The (n_data, n_spatial) mesh of a run over every rank (torchrun's, or
+    this process alone), as unet_tpu/train/loop.py:46-55 builds it:
+    `n_spatial` where it divides their number, else 1; n_data the largest
+    divisor of `batch_size` among the rest."""
     mesh = parallel.make_mesh(device=device)
-    n_data = mesh.size
+    world = mesh.size
+    n_spatial = n_spatial if world % max(n_spatial, 1) == 0 else 1
+    n_data = world // n_spatial
     if batch_size:
         while n_data > 1 and batch_size % n_data != 0:
             n_data -= 1
-    if n_data == mesh.size:
+    if (n_data, n_spatial) == mesh.shape:
         return mesh
-    return parallel.make_mesh(n_data=n_data, devices=mesh.ranks[:n_data], device=device)
+    return parallel.make_mesh(n_data, n_spatial, devices=mesh.ranks[:n_data * n_spatial],
+                              device=device)
 
 
 def _to_step(images: torch.Tensor, labels: torch.Tensor):
@@ -114,14 +121,11 @@ def train_model(model: nn.Module, train_loader, val_loader, cfg: TrainRunCfg,
     model starts from flax's initialisation drawn with `cfg.seed`
     (train.trainer.flax_init), as the JAX package's `create_train_state`
     initialises it."""
-    if cfg.n_spatial > 1:
-        raise SystemExit(f"n_spatial={cfg.n_spatial}: the spatial train step is not ported "
-                         f"to unet_tpu_torch yet, ROADMAP A15d")
-    mesh = train_mesh(getattr(train_loader, "batch_size", None), device)
+    mesh = train_mesh(getattr(train_loader, "batch_size", None), device, cfg.n_spatial)
     if not mesh.member:
         print(f"rank {dist.get_rank()}: the batch size divides over {mesh.size} ranks; idle")
         return {"best_miou": None, "epochs_run": 0, "state": None, "final_miou": None}
-    lead = mesh.rank == 0
+    lead = mesh.rank == 0 and mesh.spatial_rank == 0
     if mesh.size > 1:
         train_loader = parallel.multihost.ProcessShardedLoader(train_loader, mesh.rank,
                                                                mesh.size)
@@ -214,7 +218,7 @@ def train_model(model: nn.Module, train_loader, val_loader, cfg: TrainRunCfg,
         if (epoch + 1) % cfg.save_every_epochs == 0:
             save(f"epoch_{epoch + 1}", epoch)
         save("last", epoch)
-        dist.barrier(group=mesh.group)
+        dist.barrier(group=mesh.all_group)
 
         if cfg.target_miou is not None and miou >= cfg.target_miou:
             if lead:

@@ -32,11 +32,14 @@ the inference forward does; bf16 models (`NestedUNet(dtype=torch.bfloat16)`)
 keep float32 parameters and optimizer state, and the losses reduce in
 float32.
 
-Over a mesh (`mesh=`, parallel.mesh) each rank passes its slice of the
-global batch: BN statistics and the losses are the global batch's, and
-the gradients are averaged over the data axis before accumulation,
-clipping and the update, as GSPMD's all-reduce gives them to optax in the
-JAX package. `sample_loss` is per local sample.
+Over a mesh (`mesh=`, parallel.mesh) each rank passes its block of the
+global batch: its data slice, and on a mesh with a spatial axis its H
+stripe of the slice (`parallel.put_batch`), the forward then running on
+the stripes (`models.unetpp.striped_forward`). BN statistics and the
+losses are the global batch's, and every rank's gradient is the global
+batch's (parallel.mesh's convention) before accumulation, clipping and the
+update, as GSPMD's all-reduce gives it to optax in the JAX package.
+`sample_loss` is per local sample, over its whole plane.
 """
 from __future__ import annotations
 
@@ -233,7 +236,7 @@ def _sqrt(ts: List[torch.Tensor]) -> List[torch.Tensor]:
     if ts[0].is_cuda:
         torch._foreach_sqrt_(ts)
         return ts
-    return [torch.sqrt(t.double()).float() for t in ts]
+    return [torch.sqrt(t.double()).to(t.dtype) for t in ts]
 
 
 def build_optimizer(params, cfg: OptimCfg):
@@ -369,10 +372,16 @@ def upload(images: np.ndarray, labels: np.ndarray, device: str
     return im, lb.to(device, non_blocking=True)
 
 
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """`t` in float32, or in its own type where that is wider."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def make_loss_fn(cfg: LossCfg):
     """loss_fn(outputs, labels) -> (total, components): the configured loss
     of one output, or the deep-supervision sum over a list of them (the
-    last len(outputs) weights of `ds_weights`), computed in float32."""
+    last len(outputs) weights of `ds_weights`), computed in float32 (in
+    float64 for a float64 model)."""
     cw = tuple(cfg.class_weights) if cfg.class_weights else None
     if cfg.kind == "advanced":
         base = partial(L.advanced_combined_loss, weight_focal=cfg.weight_focal,
@@ -392,8 +401,8 @@ def make_loss_fn(cfg: LossCfg):
     def loss_fn(outputs, labels):
         if isinstance(outputs, (list, tuple)):
             ws = cfg.ds_weights[-len(outputs):]
-            return L.deep_supervision_loss([o.float() for o in outputs], labels, base, ws)
-        res = base(outputs.float(), labels)
+            return L.deep_supervision_loss([_f32(o) for o in outputs], labels, base, ws)
+        res = base(_f32(outputs), labels)
         return res[0], res[1:]
 
     return loss_fn
@@ -407,8 +416,10 @@ def make_train_step(loss_cfg: LossCfg, track_sample_loss: bool = False, mesh=Non
     under the JAX package's names ("focal", "tversky", "dice", "extra" in
     order) and, with `track_sample_loss`, "sample_loss" (B,), the
     per-sample cross-entropy of the main output. With `mesh` the step runs
-    over its data axis (`parallel.shard_train_step`): B is this rank's
-    slice, and everything but "sample_loss" is the global batch's."""
+    over it (`parallel.shard_train_step`, its spatial axis included): B
+    is this rank's slice and H its stripe, and everything but
+    "sample_loss" is the global batch's; "sample_loss" is each sample of
+    the slice's mean over its whole plane."""
     loss_fn = make_loss_fn(loss_cfg)
 
     def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor):
@@ -416,7 +427,7 @@ def make_train_step(loss_cfg: LossCfg, track_sample_loss: bool = False, mesh=Non
         for p in state.params:
             p.grad = None
         with fp32_convs():
-            outs = model(images)
+            outs, height = _forward(model, images)
             total, comps = loss_fn(outs, labels)
             total.backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in state.params]
@@ -424,9 +435,13 @@ def make_train_step(loss_cfg: LossCfg, track_sample_loss: bool = False, mesh=Non
         metrics: Dict[str, torch.Tensor] = {"loss": total.detach(),
                                             "grad_norm": global_norm(grads)}
         if track_sample_loss:
-            main = (outs[0] if isinstance(outs, (list, tuple)) else outs).detach().float()
+            main = _f32((outs[0] if isinstance(outs, (list, tuple)) else outs).detach())
             nll = -torch.log_softmax(main, 1).gather(1, labels[:, None])[:, 0]
-            metrics["sample_loss"] = nll.mean(dim=(-2, -1))
+            if height is None:
+                metrics["sample_loss"] = nll.mean(dim=(-2, -1))
+            else:
+                metrics["sample_loss"] = (_mesh.spatial_sum(nll.sum(dim=(-2, -1)))
+                                          / float(height * nll.shape[-1]))
         for name, v in zip(("focal", "tversky", "dice", "extra"), comps or ()):
             metrics[name] = v.detach()
         state.apply_gradients(grads)
@@ -441,35 +456,34 @@ def make_eval_step(num_classes: int, mesh=None):
     the device (`state` a TrainState or the model itself): the eval-mode
     forward (its first head), argmax, and `seg_metrics.confusion_matrix`,
     which drops labels >= num_classes (the loop's padding). With `mesh`,
-    over its data axis (`parallel.shard_eval_step`): each rank's slice,
-    the matrix summed over the ranks. Under `shard_eval_step(step, mesh,
-    spatial=True)`, each rank's H stripe of its slice
-    (`parallel.put_batch(spatial=True)`): the forward of a custom-encoder
-    NestedUNet on the stripes (`models.unetpp.striped_forward`), the matrix
-    summed over both axes."""
+    over it (`parallel.shard_eval_step`): each rank's slice, and on a mesh
+    with a spatial axis its H stripe of the slice (`parallel.put_batch`):
+    the forward of a custom-encoder NestedUNet on the stripes
+    (`models.unetpp.striped_forward`); the matrix summed over the mesh."""
 
     def step(state, images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         model = getattr(state, "model", state).eval()
         with torch.no_grad(), fp32_convs():
-            logits = _eval_logits(model, images)
+            logits, _ = _forward(model, images)
         if isinstance(logits, (list, tuple)):
             logits = logits[0]
         cm = seg_metrics.confusion_matrix(logits.argmax(1), labels, num_classes)
-        return _mesh.all_sum(_mesh.spatial_sum(cm))
+        return _mesh.all_sum(cm)
 
     return step if mesh is None else _mesh.shard_eval_step(step, mesh)
 
 
-def _eval_logits(model: nn.Module, images: torch.Tensor):
-    """The eval forward: on the H stripes of the active spatial mesh where
-    the step runs over one (`parallel.mesh.over(mesh, spatial=True)`)."""
+def _forward(model: nn.Module, images: torch.Tensor):
+    """(the model's outputs, None), or on the H stripes of the active
+    spatial mesh where the step runs over one (`parallel.mesh.over(mesh,
+    spatial=True)`), (the stripes' outputs, the model input's height)."""
     m = _mesh.active_spatial()
     if m is None:
-        return model(images)
+        return model(images), None
     if not isinstance(model, NestedUNet):
         raise NotImplementedError(f"{type(model).__name__} on H stripes: only the "
                                   f"custom-encoder NestedUNet runs on a spatial mesh; the model "
                                   f"zoo is ROADMAP A15e")
     st = spatial.stripes_of(images.shape[2], m.spatial_rank, m.spatial_group, m.spatial_size,
                             images.device)
-    return striped_forward(model, images, st)
+    return striped_forward(model, images, st), st.height
