@@ -196,6 +196,20 @@ Phases; any failure exits non-zero and prints no result line:
      against no remat at the fp32 gates; ms per micro-step at S = 1 and 2,
      peak memory per rank against the one-process step, the collectives'
      share of a micro-step
+ 14. the model zoo on the spatial axis (`phase_spatial_zoo`, after phase
+     13), with phase 12's harness: two_stage at 512^2 on b=4 800x448
+     frames over 1 x 2 for every --arch but nested_unet (the eight of
+     phase 8, seeded weights), in fp32 and bf16, and shufflenet over 1 x 4
+     (128 rows a rank, b=2: two ranks hold no frame), against build_step
+     on the card by phase 12's rules (fp32 ties: a top-2 gap under 1e-5
+     times the largest logit where it passes 1); the train step of
+     lightweight:custom and simple_unet (the inspection recipe's combined
+     loss, one optimizer step of two fp32 micro-steps at 512^2, b=2) over
+     1 x 2 against make_train_step by phase 13's gates; squeeze-excitation's
+     gathered bytes per frame; ms per batch at S = 1 and 2, the transport's
+     share, peak memory per rank against one process
+     Phases 12-14 run their ranks in one spawn of 2 processes and one of 4
+     (`run_spatial_phases`); each keeps its own record and seconds.
 Then, on the last two lines, the kernels' JSON record and
 {"ok": true, "device": {...}}.
 
@@ -206,6 +220,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import functools
 import json
 import os
 import struct
@@ -423,10 +438,22 @@ def seeded_model(arch: str, num_classes: int = 3, seed: int = 0,
                  dtype: str = "float32") -> nn.Module:
     """The model of `arch` (`cli --arch`) built by the CLI's `_build_model`
     without deep-supervision heads, its weights drawn as seeded_nested_unet
-    draws them; float32 parameters, compute type `dtype`; eval mode."""
+    draws them (once per arch, classes and seed in a process); float32
+    parameters, compute type `dtype`; eval mode."""
     from unet_tpu_torch.cli.main import _build_model
 
-    return _seed_state(_build_model(num_classes, arch, dtype, deep_supervision=False), seed)
+    with torch.device("meta"):   # no initialisation: the weights are loaded
+        model = _build_model(num_classes, arch, dtype, deep_supervision=False)
+    model.to_empty(device="cpu").load_state_dict(_seeded_weights(arch, num_classes, seed))
+    return model.eval()
+
+
+@functools.lru_cache(maxsize=16)
+def _seeded_weights(arch: str, num_classes: int, seed: int) -> dict:
+    from unet_tpu_torch.cli.main import _build_model
+
+    return _seed_state(_build_model(num_classes, arch, "float32", deep_supervision=False),
+                       seed).state_dict()
 
 
 def _seed_state(model: nn.Module, seed: int) -> nn.Module:
@@ -2417,13 +2444,22 @@ def write_split(root: Path, n_train: int, n_val: int, h: int, w: int, seed: int 
     return str(root)
 
 
-def seeded_train_model(seed: int = 0, dtype: str = "float32", remat: bool = False) -> nn.Module:
+def seeded_train_model(seed: int = 0, dtype: str = "float32", remat: bool = False,
+                       arch: str = "nested_unet") -> nn.Module:
     """The 3-class NestedUNet with deep supervision at full width (32-512
-    filters), its state drawn as `seeded_nested_unet` draws it."""
-    from unet_tpu_torch.models import NestedUNet
+    filters), its state drawn as `seeded_nested_unet` draws it; `arch`
+    "lightweight:custom" (the inspection recipe's model, deep supervision)
+    or "simple_unet": that model of the zoo instead."""
+    from unet_tpu_torch.models import LightweightNestedUNet, NestedUNet, SimpleUNet
 
-    return _seed_state(NestedUNet(3, deep_supervision=True, dtype=getattr(torch, dtype),
-                                  remat=remat), seed)
+    dt = getattr(torch, dtype)
+    if arch == "simple_unet":
+        model = SimpleUNet(3, dtype=dt)
+    elif arch == "lightweight:custom":
+        model = LightweightNestedUNet(3, "custom", deep_supervision=True, dtype=dt)
+    else:
+        model = NestedUNet(3, deep_supervision=True, dtype=dt, remat=remat)
+    return _seed_state(model, seed)
 
 
 def _advanced_recipe():
@@ -2438,6 +2474,17 @@ def _advanced_recipe():
                      pct_start=0.1, div_factor=10, final_div_factor=100, clip_norm=1.0,
                      accum_steps=2)
     return loss, optim
+
+
+def _inspection_recipe():
+    """The loss of `cli train --recipe inspection` (train/recipes.py: the
+    combined loss, deep supervision's default weights) and its optimizer,
+    the schedule's length set for a short run and two micro-steps an
+    update."""
+    from unet_tpu_torch.train.trainer import LossCfg, OptimCfg
+
+    return LossCfg(kind="combined"), OptimCfg(lr=1e-4, schedule="cosine", total_steps=100,
+                                              accum_steps=2)
 
 
 def _train_batch(b: int, size: int, seed: int):
@@ -3228,82 +3275,143 @@ def _int8_stripes_check(mesh, cfg, frames, device) -> int:
     return len(q.TAP_NAMES)
 
 
-def _spatial_rank(rank: int, world: int, store: str, path: str, mem_frac: float) -> None:
-    """One rank of `phase_spatial`'s gloo group: every run of the plan at
-    `path` whose mesh has `world` ranks, through
-    `shard_pipeline_step(build_step(...), mesh, spatial=True)` on the
-    global frames; per run its outputs (CPU), the logits of its frames,
-    its launches, ms per batch, the transport's host time and its peak
-    memory. Written to path.rank<r>. On the card the rank may hold
-    `mem_frac` of it (its share of what was free when the ranks started):
-    cuDNN then takes an algorithm whose workspace fits."""
+def _spatial_model(arch: str, dtype: torch.dtype) -> nn.Module:
+    """The seeded 3-class model of `arch` with compute type `dtype`: the
+    NestedUNet of `seeded_nested_unet`, or `seeded_model`'s zoo model."""
+    if arch == "nested_unet":
+        return seeded_nested_unet(dtype=dtype)
+    return seeded_model(arch, dtype=str(dtype).replace("torch.", ""))
+
+
+def _rank_setup(rank: int, world: int, store: str, path: str, mem_frac: float) -> dict:
+    """A rank of a phase's gloo group on one card: its plan (saved at
+    `path`), the card's memory cap (`mem_frac` of it: the rank's share of
+    what was free when the ranks started, so that cuDNN takes an
+    algorithm whose workspace fits), its threads, and the group."""
     import torch.distributed as dist
 
-    from unet_tpu_torch import parallel
-    from unet_tpu_torch.pipeline import stages
-
     plan = torch.load(path, weights_only=False)
-    device = plan["device"]
-    if device == "cpu":   # a rehearsal: nothing to synchronize
+    if plan["device"] == "cpu":   # a rehearsal: nothing to synchronize
         torch.cuda.synchronize = lambda *a, **k: None
     else:
         torch.cuda.set_per_process_memory_fraction(mem_frac, 0)
     torch.set_num_threads(plan["threads"])
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+    return plan
+
+
+def _spatial_run(plan: dict, mesh, name: str, shape, dtype, cfg, frames) -> dict:
+    """One run of a spatial plan on this rank of `mesh`: the seeded model of
+    the run's arch (`plan["archs"]`, the NestedUNet by default) through
+    `shard_pipeline_step(build_step(...), mesh, spatial=True)` on the global
+    frames; its outputs (CPU), the logits of its frames, its launches, ms
+    per batch, the transport's host time and its peak memory."""
+    import torch.distributed as dist
+
+    from unet_tpu_torch import parallel
+    from unet_tpu_torch.pipeline import stages
+
+    t0, device, reps = time.time(), plan["device"], plan["reps"][name]
+    model = _spatial_model(plan.get("archs", {}).get(name, "nested_unet"), dtype)
+    step = parallel.shard_pipeline_step(stages.build_step(model, cfg, device=mesh.device),
+                                        mesh, spatial=True)
+    fr = torch.from_numpy(frames).to(mesh.device)
+    if device != "cpu":   # a warm-up call first (cuDNN's algorithms, the tables)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step(fr)
+    captured = []
+    restore = _logits_spy(captured)
     try:
-        meshes, res = {}, []
-        for name, shape, dtype, cfg, frames in plan["runs"]:
-            if shape[0] * shape[1] != world:
-                continue
+        _zero_counts()
+        out = step(fr)
+        counts = _read_counts()
+    finally:
+        restore()
+    k = fr.shape[0] // mesh.size
+    first, mine = parallel.spatial.frame_split(k, mesh.spatial_size)[mesh.spatial_rank]
+    ms, transport = [], [0.0]
+    for timed in (False, True):
+        restore = _timed_transport(transport) if timed else (lambda: None)
+        try:
+            for _ in range(reps):
+                dist.barrier()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                step(fr)
+                torch.cuda.synchronize()
+                if not timed:
+                    ms.append((time.perf_counter() - t) * 1e3)
+        finally:
+            restore()
+    r = dict(name=name, shape=shape,
+             outputs={k_: v.cpu().clone() for k_, v in _leaves(out).items()},
+             first=mesh.rank * k + first, logits=captured[0] if captured else None,
+             counts=counts, frames=mine, ms=ms, transport_ms=transport[0] * 1e3 / reps,
+             peak_gib=((torch.cuda.max_memory_allocated() - base) / 2 ** 30
+                       if device != "cpu" else None))
+    if name == "two_stage_int8":
+        r["int8_tensors"] = _int8_stripes_check(mesh, cfg, fr, mesh.device)
+    r["seconds"] = time.time() - t0
+    return r
+
+
+def _spatial_rank(rank: int, world: int, store: str, path: str, mem_frac: float) -> None:
+    """One rank of `phase_spatial`'s or `phase_spatial_zoo`'s gloo group:
+    every run of the plan at `path` whose mesh has `world` ranks
+    (`_spatial_run`), then every train run of it (`plan["train_runs"]`,
+    `_spatial_train_run`). Written to path.rank<r> as (runs, train runs)."""
+    import torch.distributed as dist
+
+    from unet_tpu_torch import parallel
+
+    plan = _rank_setup(rank, world, store, path, mem_frac)
+    try:
+        meshes, res, train = {}, [], []
+
+        def mesh_of(shape):
             if shape not in meshes:
                 meshes[shape] = parallel.make_mesh(*shape, device=plan["mesh_device"])
-            mesh = meshes[shape]
-            step = parallel.shard_pipeline_step(
-                stages.build_step(seeded_nested_unet(dtype=dtype), cfg, device=mesh.device),
-                mesh, spatial=True)
-            fr = torch.from_numpy(frames).to(mesh.device)
-            if device != "cpu":
-                torch.cuda.reset_peak_memory_stats()
-            step(fr)
-            captured = []
-            restore = _logits_spy(captured)
-            try:
-                _zero_counts()
-                out = step(fr)
-                counts = _read_counts()
-            finally:
-                restore()
-            k = fr.shape[0] // mesh.size
-            first, mine = parallel.spatial.frame_split(k, mesh.spatial_size)[mesh.spatial_rank]
-            ms, transport = [], [0.0]
-            for timed in (False, True):
-                restore = _timed_transport(transport) if timed else (lambda: None)
-                try:
-                    for _ in range(plan["reps"]):
-                        dist.barrier()
-                        torch.cuda.synchronize()
-                        t = time.perf_counter()
-                        step(fr)
-                        torch.cuda.synchronize()
-                        if not timed:
-                            ms.append((time.perf_counter() - t) * 1e3)
-                finally:
-                    restore()
-            r = dict(name=name, shape=shape, outputs={k_: v.cpu() for k_, v in _leaves(out).items()},
-                     first=mesh.rank * k + first, logits=captured[0] if captured else None,
-                     counts=counts, frames=mine, ms=ms, transport_ms=transport[0] * 1e3 / plan["reps"],
-                     peak_gib=(torch.cuda.max_memory_allocated() / 2 ** 30 if device != "cpu"
-                               else None))
-            if name == "two_stage_int8":
-                r["int8_tensors"] = _int8_stripes_check(mesh, cfg, fr, mesh.device)
-            res.append(r)
-        torch.save(res, f"{path}.rank{rank}")
+            return meshes[shape]
+
+        for name, shape, dtype, cfg, frames in plan["runs"]:
+            if shape[0] * shape[1] == world:
+                res.append(_spatial_run(plan, mesh_of(shape), name, shape, dtype, cfg, frames))
+        for run in plan.get("train_runs", ()):
+            if run[1][0] * run[1][1] == world:
+                train.append(_spatial_train_run(plan, mesh_of(run[1]), rank, *run))
+        torch.save((res, train), f"{path}.rank{rank}")
     finally:
         dist.destroy_process_group()
 
 
-def phase_spatial(card="", device="cuda", H=448, W=800, b=8, high_res_b=2, native=None,
-                  model_size=None, reps=3):
+def _spawn_ranks(entry, plan: dict, tmp: str, worlds, device: str, what: str) -> dict:
+    """{world: [each rank's result]}: `entry` on `world` ranks of one gloo
+    group for each of `worlds`, the plan saved in `tmp`. On the card each
+    rank may hold its share of 0.9 of the free memory."""
+    import torch.multiprocessing as mp
+
+    path = os.path.join(tmp, "plan.pt")
+    torch.save(plan, path)
+    ranks = {}
+    for world in worlds:
+        t, mem_frac = time.time(), 1.0
+        if device != "cpu":
+            torch.cuda.empty_cache()
+            free, total = torch.cuda.mem_get_info()
+            mem_frac = 0.9 * free / world / total
+            _log(f"{what}: {free / 2 ** 30:.1f} of {total / 2 ** 30:.1f} GiB free; each of "
+                 f"{world} ranks may hold {mem_frac * total / 2 ** 30:.1f} GiB")
+        mp.start_processes(entry, args=(world, os.path.join(tmp, f"store{world}"), path,
+                                        mem_frac), nprocs=world, start_method="spawn")
+        ranks[world] = [torch.load(f"{path}.rank{r}", weights_only=False) for r in range(world)]
+        for r in range(world):
+            os.remove(f"{path}.rank{r}")
+        _log(f"{what}: {world} ranks on {device} in {time.time() - t:.1f} s")
+    return ranks
+
+
+def phase_spatial(card="", device="cuda", **kw):
     """The spatial axis (phase 12): 2 and 4 ranks of one gloo group on one
     card (`cuda:0`: NCCL takes no two ranks on one device), each its own
     process, the kernels built before they start (`_build.build_all`). The
@@ -3330,142 +3438,207 @@ def phase_spatial(card="", device="cuda", H=448, W=800, b=8, high_res_b=2, nativ
     time inside the all-gathers, between synchronizes, in a second set of
     `reps`). Processes that share one card: not a scaling figure. Returns
     the record."""
+    return run_spatial_phases([functools.partial(_spatial_part, card, device, **kw)],
+                              device)[0]
+
+
+def _spatial_part(card="", device="cuda", H=448, W=800, b=8, high_res_b=2, native=None,
+                  model_size=None, reps=3) -> dict:
+    """`phase_spatial`'s share of `run_spatial_phases` (its arguments): its
+    runs and their references on `device`, and the check of its ranks'
+    results."""
+    t0 = time.time()
+    runs = spatial_plan(H, W, b, high_res_b, native, model_size)
+    want = _spatial_references(runs, {}, device, reps)
+    rec = dict(backend="gloo", device=device, runs={})
+
+    def finish(ranks):
+        for per_rank in ranks.values():
+            for i, r0 in enumerate(per_rank[0][0]):
+                if r0["name"] in want:
+                    key = f"{r0['name']} {r0['shape'][0]}x{r0['shape'][1]}"
+                    rec["runs"][key] = _spatial_check([res[0][i] for res in per_rank], want,
+                                                      r0["name"].rsplit("_", 1)[0], card)
+        return rec
+
+    return dict(runs=runs, reps={r[0]: reps for r in runs}, rec=rec, finish=finish,
+                prep_s=time.time() - t0)
+
+
+def run_spatial_phases(makers, device) -> list:
+    """Phases 12 to 14 (or any of them) with one spawn of rank processes for
+    each world size their runs need: `makers` build each phase's part (its
+    inspection runs, train runs, batches, references in this process and
+    the check of its results), after the kernels are built; the parts'
+    runs go to the ranks in one plan (`_spatial_rank`; each rank capped at
+    its share of the card's free memory, 2 threads; on the CPU the
+    parent's thread count, whose convs sum in an order that depends on
+    it). Returns each part's record, with its seconds: its preparation,
+    its runs on the first rank and its check; the ranks' start-up, shared,
+    under "spawn_overhead_s"."""
     import tempfile
 
-    import torch.multiprocessing as mp
-
     from unet_tpu_torch import _build
-    from unet_tpu_torch.pipeline import stages
 
     if device != "cpu":
         _build.build_all(["cc_propagate", "nlm", "qconv"])
         torch.cuda.empty_cache()   # the card's memory for the ranks
-    t0 = time.time()
-    runs = spatial_plan(H, W, b, high_res_b, native, model_size)
-    rec = dict(backend="gloo", device=device, runs={})
-    # the references: build_step on the same device, S = 1
+    parts = [make() for make in makers]
+    plan = dict(runs=[], archs={}, train_runs=[], batches={}, reps={}, device=device,
+                threads=torch.get_num_threads() if device == "cpu" else 2,
+                mesh_device="cpu" if device == "cpu" else "cuda:0")
+    for part in parts:
+        plan["runs"] += list(part.get("runs", ()))
+        plan["train_runs"] += list(part.get("train_runs", ()))
+        for k in ("archs", "batches", "reps"):
+            plan[k].update(part.get(k, {}))
+    worlds = sorted({shape[0] * shape[1] for shape in [r[1] for r in plan["runs"]]
+                     + [r[1] for r in plan["train_runs"]]})
+    t = time.time()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spatial_") as tmp:
+        ranks = _spawn_ranks(_spatial_rank, plan, tmp, worlds, device, "spatial phases")
+    spawn_s = time.time() - t
+    first = [r for per_rank in ranks.values() for r in per_rank[0][0] + per_rank[0][1]]
+    out = []
+    for part in parts:
+        t = time.time()
+        rec = part["finish"](ranks)
+        # a train run's key in `reps` is (name, arch), an inspection run's its name
+        own = sum(r["seconds"] for r in first
+                  if ((r["name"], r["arch"]) if "arch" in r else r["name"]) in part["reps"])
+        rec["seconds"] = round(part["prep_s"] + own + time.time() - t, 1)
+        rec["spawn_overhead_s"] = round(spawn_s - sum(r["seconds"] for r in first), 1)
+        out.append(rec)
+    return out
+
+
+
+def _spatial_references(runs, archs: dict, device, reps: int) -> dict:
+    """{run name: (outputs, logits, launches, ms per batch)} of `build_step`
+    on `device` (S = 1) for each run of a spatial plan, the seeded model of
+    the run's arch (`archs`, the NestedUNet by default)."""
+    from unet_tpu_torch.pipeline import stages
+
     want = {}
     for name, shape, dtype, cfg, frames in runs:
         if name in want:
             continue
-        step = stages.build_step(seeded_nested_unet(dtype=dtype), cfg, device=device)
+        step = stages.build_step(_spatial_model(archs.get(name, "nested_unet"), dtype), cfg,
+                                 device=device)
         fr = torch.from_numpy(frames).to(device)
         captured = []
         restore = _logits_spy(captured)
+        cuda = torch.device(device).type == "cuda"
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
         try:
             _zero_counts()
             out = step(fr)
             counts = _read_counts()
         finally:
             restore()
-        want[name] = (out, captured[0], counts, _time_step(step, fr, reps=reps))
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_spatial_") as tmp:
-        path = os.path.join(tmp, "plan.pt")
-        # the ranks' threads: on the CPU the parent's (its convs sum in an
-        # order that depends on the thread count); on the card 2 each
-        torch.save(dict(runs=runs, device=device, reps=reps,
-                        threads=torch.get_num_threads() if device == "cpu" else 2,
-                        mesh_device="cpu" if device == "cpu" else "cuda:0"), path)
-        ranks = {}
-        for world in (2, 4):
-            t, mem_frac = time.time(), 1.0
-            if device != "cpu":
-                torch.cuda.empty_cache()
-                free, total = torch.cuda.mem_get_info()
-                mem_frac = 0.9 * free / world / total
-                _log(f"spatial: {free / 2 ** 30:.1f} of {total / 2 ** 30:.1f} GiB free; each of "
-                     f"{world} ranks may hold {mem_frac * total / 2 ** 30:.1f} GiB")
-            mp.start_processes(_spatial_rank, args=(world, os.path.join(tmp, f"store{world}"),
-                                                    path, mem_frac), nprocs=world,
-                               start_method="spawn")
-            ranks[world] = [torch.load(f"{path}.rank{r}", weights_only=False)
-                            for r in range(world)]
-            for r in range(world):
-                os.remove(f"{path}.rank{r}")
-            _log(f"spatial: {world} ranks on {device} in {time.time() - t:.1f} s")
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30 if cuda else None
+        want[name] = (out, captured[0], counts, _time_step(step, fr, reps=reps), peak)
+    return want
+
+
+def _spatial_check(per_rank: list, want: dict, fp32_name: str, card: str,
+                   scale_gap: bool = False) -> dict:
+    """One run of a spatial plan (`_spatial_run` on every rank) against
+    `build_step`'s (`_spatial_references`): every rank's outputs equal;
+    the launches per rank (B1 and B2 as build_step's on a rank with frames,
+    none without; qconv as build_step's on every rank); class maps and px
+    counts equal, or differing only on tie pixels of the reference logits
+    (`compare_with_ties`): in fp32 a top-2 gap under SPATIAL_GAP (with
+    `scale_gap`, times the largest logit where it passes 1, as
+    `phase_models` scales its gates); in bf16 the stripes must move the
+    logits by less than bf16 moves them from the fp32 run `fp32_name`'s on
+    the same frames, and a flip must lie where the gap is under twice that
+    move; every other field equal where no pixel flips (integers; floats
+    within 1e-4). Logs and returns the record."""
     from types import SimpleNamespace
 
-    for world, per_rank in ranks.items():
-        for i, r0 in enumerate(per_rank[0]):
-            name, shape = r0["name"], r0["shape"]
-            what = f"spatial {name} over {shape[0]} x {shape[1]}"
-            out, want_logits, want_counts, ms1 = want[name]
-            wl = {k: v.cpu() for k, v in _leaves(out).items()}
-            for r, res in enumerate(per_rank):
-                got = res[i]["outputs"]
-                if sorted(got) != sorted(wl) or any(not torch.equal(got[k], r0["outputs"][k])
-                                                   for k in got):
-                    raise AssertionError(f"{what}: rank {r}'s outputs differ from rank 0's")
-                qk = {k: v for k, v in want_counts.items() if k.startswith("qconv")}
-                other = {k: (v if res[i]["frames"] else 0) for k, v in want_counts.items()
-                         if not k.startswith("qconv")}
-                if res[i]["counts"] != {**other, **qk}:
-                    raise AssertionError(f"{what}: rank {r} ({res[i]['frames']} frames) "
-                                         f"launched {res[i]['counts']}, expected {other | qk}")
-            # one copy of each frame: ranks of the data axis's other slices
-            # hold their own frames, the spatial group splits a slice
-            seen, parts = set(), []
-            for res in sorted(per_rank, key=lambda x: x[i]["first"]):
-                if res[i]["frames"] and res[i]["first"] not in seen:
-                    seen.add(res[i]["first"])
-                    parts.append(res[i]["logits"])
-            logits = torch.cat(parts).float()
-            g = r0["outputs"]
-            wlf = want_logits.float()
-            moved = float((logits - wlf).abs().max())
-            gap, gap_text, own = SPATIAL_GAP, f"{SPATIAL_GAP:g}", None
-            if want_logits.dtype == torch.bfloat16:
-                # a stripe may move the bf16 logits (cuDNN's algorithm for its
-                # shape rounds otherwise) by less than bf16 moves them from
-                # the fp32 step's on the same frames; a pixel can flip only
-                # where its gap is under twice the move
-                own = float((wlf - want[name.rsplit("_", 1)[0]][1].float()).abs().max())
-                if moved > own:
-                    raise AssertionError(f"{what}: the stripes move the logits by {moved:.3e}, "
-                                         f"more than bf16 moves them from fp32 ({own:.3e})")
-                gap, gap_text = 2 * moved, f"2 x the logits' move, {2 * moved:.3e}"
-            flips = logits.argmax(1) != wlf.argmax(1)
-            top2 = wlf.topk(2, dim=1).values
-            flip_gaps = (top2[:, 0] - top2[:, 1])[flips]
-            ties = compare_with_ties(SimpleNamespace(**g), out, logits, want_logits, what, gap)
-            ties.update(largest_flip_gap=float(flip_gaps.max()) if len(flip_gaps) else 0.0,
-                        flips_gap_over_1e3=int((flip_gaps >= 1e-3).sum()),
-                        bf16_vs_fp32_max_abs_diff=own)
-            if ties["flips"] == 0:
-                for k, w in wl.items():
-                    if w.dtype.is_floating_point:
-                        if not torch.allclose(g[k], w, rtol=1e-4, atol=1e-4):
-                            raise AssertionError(f"{what}: {k} differs")
-                    elif not torch.equal(g[k], w):
-                        raise AssertionError(f"{what}: {k} differs")
-            logit_err = moved
-            rows = [dict(rank=r, frames=res[i]["frames"], counts={
-                k: v for k, v in res[i]["counts"].items() if v}, ms=res[i]["ms"],
-                transport_ms=res[i]["transport_ms"], peak_gib=res[i]["peak_gib"])
-                for r, res in enumerate(per_rank)]
-            ms = float(np.median(r0["ms"]))
-            key = f"{name} {shape[0]}x{shape[1]}"
-            rec["runs"][key] = dict(ms=ms, ms_runs=r0["ms"], build_step_ms=ms1,
-                                    transport_ms=r0["transport_ms"],
-                                    transport_share=r0["transport_ms"] / ms,
-                                    logits_max_abs_diff=logit_err, fields=len(wl),
-                                    int8_tensors=r0.get("int8_tensors"), per_rank=rows, **ties)
-            _log(f"{what}, b={g['class_map'].shape[0]}: {len(wl)} output fields as "
-                 f"build_step's; logits max abs diff {logit_err:.3e}, argmax flips "
-                 f"{ties['flips']} (all on tie pixels, top-2 gap < {gap_text}: "
-                 f"{ties['tie_pixels']} in the reference; largest gap of a flip "
-                 f"{ties['largest_flip_gap']:.3e}, {ties['flips_gap_over_1e3']} flips at a gap "
-                 f">= 1e-3), class-map pixels differing {ties['class_map_diff']}"
-                 + (f"; bf16 against fp32 {own:.3e}" if own is not None else "")
-                 + (f"; int8 tensors bit for bit on every stripe: {r0['int8_tensors']}"
-                    if "int8_tensors" in r0 else "")
-                 + f"; {ms:.3f} ms/batch (S=1 build_step {ms1:.3f}), transport "
-                   f"{r0['transport_ms']:.3f} ms = {r0['transport_ms'] / ms:.1%} (rank 0) [{card}]")
-            for row in rows:
-                _log(f"  rank {row['rank']}: {row['frames']} frame(s), launches {row['counts']}"
-                     + (f", peak {row['peak_gib']:.3f} GiB" if row["peak_gib"] is not None
-                        else ""))
-    rec["seconds"] = round(time.time() - t0, 1)
+    r0 = per_rank[0]
+    name, shape = r0["name"], r0["shape"]
+    what = f"spatial {name} over {shape[0]} x {shape[1]}"
+    out, want_logits, want_counts, ms1, peak1 = want[name]
+    wl = {k: v.cpu() for k, v in _leaves(out).items()}
+    for r, res in enumerate(per_rank):
+        got = res["outputs"]
+        if sorted(got) != sorted(wl) or any(not torch.equal(got[k], r0["outputs"][k])
+                                           for k in got):
+            raise AssertionError(f"{what}: rank {r}'s outputs differ from rank 0's")
+        qk = {k: v for k, v in want_counts.items() if k.startswith("qconv")}
+        other = {k: (v if res["frames"] else 0) for k, v in want_counts.items()
+                 if not k.startswith("qconv")}
+        if res["counts"] != {**other, **qk}:
+            raise AssertionError(f"{what}: rank {r} ({res['frames']} frames) "
+                                 f"launched {res['counts']}, expected {other | qk}")
+    # one copy of each frame: ranks of the data axis's other slices
+    # hold their own frames, the spatial group splits a slice
+    seen, parts = set(), []
+    for res in sorted(per_rank, key=lambda x: x["first"]):
+        if res["frames"] and res["first"] not in seen:
+            seen.add(res["first"])
+            parts.append(res["logits"])
+    logits = torch.cat(parts).float()
+    g = r0["outputs"]
+    wlf = want_logits.float()
+    moved = float((logits - wlf).abs().max())
+    scale = max(1.0, float(wlf.abs().max())) if scale_gap else 1.0
+    gap, gap_text, own = SPATIAL_GAP * scale, f"{SPATIAL_GAP * scale:g}", None
+    if want_logits.dtype == torch.bfloat16:
+        # a stripe may move the bf16 logits (cuDNN's algorithm for its
+        # shape rounds otherwise) by less than bf16 moves them from
+        # the fp32 step's on the same frames; a pixel can flip only
+        # where its gap is under twice the move
+        own = float((wlf - want[fp32_name][1].float()).abs().max())
+        if moved > own:
+            raise AssertionError(f"{what}: the stripes move the logits by {moved:.3e}, "
+                                 f"more than bf16 moves them from fp32 ({own:.3e})")
+        gap, gap_text = 2 * moved, f"2 x the logits' move, {2 * moved:.3e}"
+    flips = logits.argmax(1) != wlf.argmax(1)
+    top2 = wlf.topk(2, dim=1).values
+    flip_gaps = (top2[:, 0] - top2[:, 1])[flips]
+    ties = compare_with_ties(SimpleNamespace(**g), out, logits, want_logits, what, gap)
+    ties.update(largest_flip_gap=float(flip_gaps.max()) if len(flip_gaps) else 0.0,
+                flips_gap_over_1e3=int((flip_gaps >= 1e-3).sum()),
+                bf16_vs_fp32_max_abs_diff=own)
+    if ties["flips"] == 0:
+        for k, w in wl.items():
+            if w.dtype.is_floating_point:
+                if not torch.allclose(g[k], w, rtol=1e-4, atol=1e-4):
+                    raise AssertionError(f"{what}: {k} differs")
+            elif not torch.equal(g[k], w):
+                raise AssertionError(f"{what}: {k} differs")
+    rows = [dict(rank=r, frames=res["frames"], counts={
+        k: v for k, v in res["counts"].items() if v}, ms=res["ms"],
+        transport_ms=res["transport_ms"], peak_gib=res["peak_gib"])
+        for r, res in enumerate(per_rank)]
+    ms = float(np.median(r0["ms"]))
+    rec = dict(ms=ms, ms_runs=r0["ms"], build_step_ms=ms1, build_step_peak_gib=peak1,
+               transport_ms=r0["transport_ms"],
+               transport_share=r0["transport_ms"] / ms, logits_max_abs_diff=moved,
+               logits_max_abs=float(wlf.abs().max()), logits_hw=list(wlf.shape[-2:]),
+               fields=len(wl), int8_tensors=r0.get("int8_tensors"), per_rank=rows, **ties)
+    _log(f"{what}, b={g['class_map'].shape[0]}: {len(wl)} output fields as "
+         f"build_step's; logits {tuple(wlf.shape[-2:])} up to {rec['logits_max_abs']:.3f}, max "
+         f"abs diff {moved:.3e}, argmax flips "
+         f"{ties['flips']} (all on tie pixels, top-2 gap < {gap_text}: "
+         f"{ties['tie_pixels']} in the reference; largest gap of a flip "
+         f"{ties['largest_flip_gap']:.3e}, {ties['flips_gap_over_1e3']} flips at a gap "
+         f">= 1e-3), class-map pixels differing {ties['class_map_diff']}"
+         + (f"; bf16 against fp32 {own:.3e}" if own is not None else "")
+         + (f"; int8 tensors bit for bit on every stripe: {r0['int8_tensors']}"
+            if "int8_tensors" in r0 else "")
+         + f"; {ms:.3f} ms/batch (S=1 build_step {ms1:.3f}), transport "
+           f"{r0['transport_ms']:.3f} ms = {r0['transport_ms'] / ms:.1%} (rank 0) [{card}]")
+    for row in rows:
+        _log(f"  rank {row['rank']}: {row['frames']} frame(s), launches {row['counts']}"
+             + (f", peak {row['peak_gib']:.3f} GiB" if row["peak_gib"] is not None else ""))
+    if peak1 is not None:
+        _log(f"  build_step in one process: peak {peak1:.3f} GiB")
     return rec
 
 
@@ -3473,10 +3646,12 @@ def phase_spatial(card="", device="cuda", H=448, W=800, b=8, high_res_b=2, nativ
 # phase 13: the spatial train step (ranks of one gloo group on one card)
 # ---------------------------------------------------------------------------
 
-# (name, (n_data, n_spatial), model dtype, remat): one optimizer step of two
-# micro-steps each, the global batch 2 per data slice
-SPATIAL_TRAIN_RUNS = (("fp32", (1, 2), "float32", False), ("bf16", (1, 2), "bfloat16", False),
-                      ("fp32_remat", (1, 2), "float32", True), ("fp32", (2, 2), "float32", False))
+# (name, (n_data, n_spatial), model dtype, remat, arch): one optimizer step of
+# two micro-steps each, the global batch 2 per data slice
+SPATIAL_TRAIN_RUNS = (("fp32", (1, 2), "float32", False, "nested_unet"),
+                      ("bf16", (1, 2), "bfloat16", False, "nested_unet"),
+                      ("fp32_remat", (1, 2), "float32", True, "nested_unet"),
+                      ("fp32", (2, 2), "float32", False, "nested_unet"))
 # the fp32 gradient's gate, of its norm: the striped step's distance from the
 # one-process step computed in float64 (its function, exactly) within twice
 # the one-process fp32 step's own, and at least this. Two fp32 runs of the
@@ -3497,11 +3672,13 @@ def _digest(t: torch.Tensor) -> str:
 
 
 def _spatial_train_steps(mesh, images, labels, dtype: str, remat: bool, device, reps: int,
-                         timed: bool = False) -> dict:
+                         timed: bool = False, arch: str = "nested_unet") -> dict:
     """Two micro-steps (one optimizer step) of the 3class_advanced step on
-    `seeded_train_model(dtype, remat)` over `mesh` (its block of the global
-    batch; None: the whole batch in this process, `dtype` float64 making
-    the parameters float64 too): the metrics, the first micro-step's
+    `seeded_train_model(dtype, remat)`, or for a zoo `arch` of the inspection
+    recipe's step on `seeded_train_model(dtype, arch=arch)`, over `mesh`
+    (its block of the global batch; None: the whole batch in this process,
+    `dtype` float64 making the parameters float64 too): the metrics, the
+    first micro-step's
     gradient (MultiSteps' accumulator) and the BN statistics after both,
     on the CPU in float64; the step's peak memory (above what was live
     before it); then ms per micro-step, the median of `reps` micro-steps
@@ -3514,14 +3691,14 @@ def _spatial_train_steps(mesh, images, labels, dtype: str, remat: bool, device, 
     from unet_tpu_torch.parallel import put_batch
     from unet_tpu_torch.train.trainer import create_train_state, make_train_step
 
-    loss, optim = _advanced_recipe()
+    loss, optim = _advanced_recipe() if arch == "nested_unet" else _inspection_recipe()
     cuda = torch.device(device).type == "cuda"
     if cuda:
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
     f64 = dtype == "float64"
-    model = seeded_train_model(dtype="float32" if f64 else dtype, remat=remat)
+    model = seeded_train_model(dtype="float32" if f64 else dtype, remat=remat, arch=arch)
     if f64:
         model = model.double()
         model.dtype = torch.float64
@@ -3538,7 +3715,8 @@ def _spatial_train_steps(mesh, images, labels, dtype: str, remat: bool, device, 
         metrics.append({k: float(v) for k, v in m.items()})
         if i == 0:
             grads = _flat(state.acc_grads)
-    stats = _flat(v for k, v in state.model.state_dict().items() if "running" in k)
+    stats = _flat([v for k, v in state.model.state_dict().items() if "running" in k]
+                  or [torch.zeros(0)])
     params = _flat(state.params)
     peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30 if cuda else None
     sync = torch.cuda.synchronize
@@ -3569,51 +3747,35 @@ def _spatial_train_steps(mesh, images, labels, dtype: str, remat: bool, device, 
     return out
 
 
-def _spatial_train_rank(rank: int, world: int, store: str, path: str, mem_frac: float) -> None:
-    """One rank of `phase_spatial_train`'s gloo group: every run of
-    SPATIAL_TRAIN_RUNS whose mesh has `world` ranks, through
-    `make_train_step(mesh=...)` on this rank's block of the global batch
-    (`_spatial_train_steps`). The gradient, parameters and statistics
-    travel as digests, and whole from the group's first rank only. Written
-    to path.rank<r>."""
-    import torch.distributed as dist
+def _spatial_train_run(plan: dict, mesh, rank: int, name: str, shape, dtype: str,
+                       remat: bool, arch: str) -> dict:
+    """One train run of a plan on this rank of `mesh` (`_spatial_train_steps`
+    on its block of the global batch): the gradient, parameters and
+    statistics travel as digests, and whole from the group's first rank
+    only."""
+    t0 = time.time()
+    images, labels = plan["batches"][arch, 2 * shape[0]]
+    r = _spatial_train_steps(mesh, images, labels, dtype, remat, mesh.device,
+                             plan["reps"][name, arch], timed=True, arch=arch)
+    for k in ("grads", "params", "stats"):
+        r[f"{k}_digest"] = _digest(r[k])
+    if rank:
+        r["grads"] = r["params"] = None
+    return dict(r, name=name, shape=shape, dtype=dtype, remat=remat, arch=arch,
+                seconds=time.time() - t0)
 
-    from unet_tpu_torch import parallel
 
-    plan = torch.load(path, weights_only=False)
-    device = plan["device"]
-    if device == "cpu":   # a rehearsal: nothing to synchronize
-        torch.cuda.synchronize = lambda *a, **k: None
-    else:
-        torch.cuda.set_per_process_memory_fraction(mem_frac, 0)
-    torch.set_num_threads(plan["threads"])
-    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
-    try:
-        meshes, res = {}, []
-        for name, shape, dtype, remat in SPATIAL_TRAIN_RUNS:
-            if shape[0] * shape[1] != world:
-                continue
-            if shape not in meshes:
-                meshes[shape] = parallel.make_mesh(*shape, device=plan["mesh_device"])
-            mesh = meshes[shape]
-            images, labels = plan["batches"][2 * shape[0]]
-            r = _spatial_train_steps(mesh, images, labels, dtype, remat, mesh.device,
-                                     plan["reps"], timed=True)
-            for k in ("grads", "params", "stats"):
-                r[f"{k}_digest"] = _digest(r[k])
-            if rank:
-                r["grads"] = r["params"] = None
-            res.append(dict(r, name=name, shape=shape))
-        torch.save(res, f"{path}.rank{rank}")
-    finally:
-        dist.destroy_process_group()
+def _max_abs(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest absolute difference; 0 for empty tensors (a model
+    without BatchNorm has no statistics)."""
+    return float((got - want).abs().max()) if want.numel() else 0.0
 
 
 def _train_dist(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).norm() / want.norm())
 
 
-def phase_spatial_train(card="", device="cuda", size=512, reps=3, grad_gate=SPATIAL_TRAIN_GRAD):
+def phase_spatial_train(card="", device="cuda", **kw):
     """The spatial train step (phase 13): the full-width 3-class NestedUNet
     with deep supervision (`seeded_train_model`), 3class_advanced's loss and
     optimizer (class weights, accumulation 2), one optimizer step of two
@@ -3641,68 +3803,75 @@ def phase_spatial_train(card="", device="cuda", size=512, reps=3, grad_gate=SPAT
     transport and the all-reduces, between synchronizes, in `reps` more).
     Processes that share one card: not a scaling figure. Returns the
     record."""
-    import tempfile
+    return run_spatial_phases([functools.partial(_spatial_train_part, card, device, **kw)],
+                              device)[0]
 
-    import torch.multiprocessing as mp
 
-    from unet_tpu_torch import _build
+def _own_train(ranks: dict, keys) -> dict:
+    """{world: [each rank's train runs whose (name, arch) is in `keys`]}."""
+    return {w: [[t for t in res[1] if (t["name"], t["arch"]) in keys] for res in per_rank]
+            for w, per_rank in ranks.items()}
 
-    if device != "cpu":
-        _build.build_all(["cc_propagate", "nlm", "qconv"])
-        torch.cuda.empty_cache()
+
+def _spatial_train_part(card="", device="cuda", size=512, reps=3,
+                        grad_gate=SPATIAL_TRAIN_GRAD) -> dict:
+    """`phase_spatial_train`'s share of `run_spatial_phases` (its
+    arguments)."""
     t0 = time.time()
-    batches = {b: _train_batch(b, size, seed=95 + b) for b in (2, 4)}
-    # the references in this process, S = 1
-    want = {}
-    for name, shape, dtype, remat in SPATIAL_TRAIN_RUNS:
-        b = 2 * shape[0]
-        for key in ((dtype, remat, b), ("float32", False, b), ("float64", False, b)):
-            if key not in want:   # float64: the fp32 step's function, exactly
-                want[key] = _spatial_train_steps(None, *batches[b], *key[:2], device,
-                                                 0 if key[0] == "float64" else reps)
+    batches = {("nested_unet", b): _train_batch(b, size, seed=95 + b) for b in (2, 4)}
+    want = _spatial_train_references(SPATIAL_TRAIN_RUNS, batches, device, reps)
     rec = dict(backend="gloo", device=device, size=size, runs={})
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_spatial_train_") as tmp:
-        path = os.path.join(tmp, "plan.pt")
-        torch.save(dict(batches=batches, device=device, reps=reps,
-                        threads=torch.get_num_threads() if device == "cpu" else 2,
-                        mesh_device="cpu" if device == "cpu" else "cuda:0"), path)
-        ranks = {}
-        for world in (2, 4):
-            t, mem_frac = time.time(), 1.0
-            if device != "cpu":
-                torch.cuda.empty_cache()
-                free, total = torch.cuda.mem_get_info()
-                mem_frac = 0.9 * free / world / total
-                _log(f"spatial train: {free / 2 ** 30:.1f} of {total / 2 ** 30:.1f} GiB free; "
-                     f"each of {world} ranks may hold {mem_frac * total / 2 ** 30:.1f} GiB")
-            mp.start_processes(_spatial_train_rank,
-                               args=(world, os.path.join(tmp, f"store{world}"), path, mem_frac),
-                               nprocs=world, start_method="spawn")
-            ranks[world] = [torch.load(f"{path}.rank{r}", weights_only=False)
-                            for r in range(world)]
-            for r in range(world):
-                os.remove(f"{path}.rank{r}")
-            _log(f"spatial train: {world} ranks on {device} in {time.time() - t:.1f} s")
+    keys = {(r[0], r[4]) for r in SPATIAL_TRAIN_RUNS}
+
+    def finish(ranks):
+        rec["runs"] = _spatial_train_checks(_own_train(ranks, keys), want, size, card, grad_gate)
+        return rec
+
+    return dict(train_runs=SPATIAL_TRAIN_RUNS, batches=batches, reps=dict.fromkeys(keys, reps),
+                rec=rec, finish=finish, prep_s=time.time() - t0)
+
+
+
+def _spatial_train_references(runs, batches: dict, device, reps: int) -> dict:
+    """{(arch, dtype, remat, b): `_spatial_train_steps` in this process (S =
+    1) on batches[arch, b]} for each train run of a plan, with the fp32 step
+    and its float64 twin (the fp32 step's function, exactly) beside it."""
+    want = {}
+    for name, shape, dtype, remat, arch in runs:
+        b = 2 * shape[0]
+        for key in ((arch, dtype, remat, b), (arch, "float32", False, b),
+                    (arch, "float64", False, b)):
+            if key not in want:
+                want[key] = _spatial_train_steps(None, *batches[arch, b], *key[1:3], device,
+                                                 0 if key[1] == "float64" else reps, arch=arch)
+    return want
+
+
+def _spatial_train_checks(ranks: dict, want: dict, size: int, card: str, grad_gate: float) -> dict:
+    """The train runs of every rank (`{world: [each rank's train runs]}`)
+    against the one-process steps (`_spatial_train_references`), by
+    `phase_spatial_train`'s gates; logs them and returns {run: record}."""
+    out = {}
     runs = {}
     for world, per_rank in ranks.items():
         for i, r0 in enumerate(per_rank[0]):
             name, shape = r0["name"], r0["shape"]
-            what = f"spatial train {name} over {shape[0]} x {shape[1]}"
+            what = f"spatial train {_train_label(r0)} over {shape[0]} x {shape[1]}"
             for r, res in enumerate(per_rank):
                 got = res[i]
                 if got["metrics"] != r0["metrics"] or any(
                         got[f"{k}_digest"] != r0[f"{k}_digest"] for k in ("grads", "params", "stats")):
                     raise AssertionError(f"{what}: rank {r}'s metrics or state differ from rank 0's")
-            runs[f"{name} {shape[0]}x{shape[1]}"] = (name, shape, i, per_rank)
+            runs[f"{_train_label(r0)} {shape[0]}x{shape[1]}"] = (name, shape, i, per_rank)
     for key, (name, shape, i, per_rank) in runs.items():
         r0 = per_rank[0][i]
         what = f"spatial train {key}"
-        dtype, remat = {n: (d, rm) for n, _, d, rm in SPATIAL_TRAIN_RUNS}[name]
+        dtype, remat, arch = r0["dtype"], r0["remat"], r0["arch"]
         b = 2 * shape[0]
-        one = want[dtype, remat, b]
+        one = want[arch, dtype, remat, b]
         check = {}
         if dtype == "float32":
-            exact = want["float64", False, b]["grads"]
+            exact = want[arch, "float64", False, b]["grads"]
             for m, (g, w) in enumerate(zip(r0["metrics"], one["metrics"])):
                 for k, v in w.items():
                     tol = TRAIN_RTOL.get(k)
@@ -3712,7 +3881,7 @@ def phase_spatial_train(card="", device="cuda", size=512, reps=3, grad_gate=SPAT
             check = dict(grad=_train_dist(r0["grads"], one["grads"]),
                          grad_vs_float64=_train_dist(r0["grads"], exact),
                          one_process_grad_vs_float64=_train_dist(one["grads"], exact),
-                         stats=float((r0["stats"] - one["stats"]).abs().max()),
+                         stats=_max_abs(r0["stats"], one["stats"]),
                          loss_rel=abs(r0["metrics"][0]["loss"] / one["metrics"][0]["loss"] - 1),
                          grad_norm_rel=abs(r0["metrics"][0]["grad_norm"]
                                            / one["metrics"][0]["grad_norm"] - 1))
@@ -3726,7 +3895,7 @@ def phase_spatial_train(card="", device="cuda", size=512, reps=3, grad_gate=SPAT
                                      f", at least {grad_gate}); {check['grad']:.3e} from the "
                                      f"one-process fp32")
         else:
-            f32 = want["float32", False, b]
+            f32 = want[arch, "float32", False, b]
             rms = lambda a, c: float((a - c).square().mean().sqrt())
             for k in ("grads", "stats"):
                 check[k] = dict(stripes=rms(r0[k], f32[k]), one_process=rms(one[k], f32[k]))
@@ -3740,10 +3909,11 @@ def phase_spatial_train(card="", device="cuda", size=512, reps=3, grad_gate=SPAT
                     raise AssertionError(f"{what}: {k} {r0['metrics'][0][k]} vs fp32 "
                                          f"{f32['metrics'][0][k]} (rtol {TRAIN_BF16_RTOL})")
         if name == "fp32_remat":
-            _, _, j, plain_ranks = runs[f"fp32 {shape[0]}x{shape[1]}"]
+            _, _, j, plain_ranks = runs[f"{_train_label(dict(r0, name='fp32'))} "
+                                        f"{shape[0]}x{shape[1]}"]
             plain = plain_ranks[0][j]
             check["vs_no_remat"] = dict(grad=_train_dist(r0["grads"], plain["grads"]),
-                                        stats=float((r0["stats"] - plain["stats"]).abs().max()))
+                                        stats=_max_abs(r0["stats"], plain["stats"]))
             for k in TRAIN_RTOL:
                 if abs(r0["metrics"][0][k] - plain["metrics"][0][k]) > TRAIN_RTOL[k] * abs(
                         plain["metrics"][0][k]):
@@ -3758,15 +3928,16 @@ def phase_spatial_train(card="", device="cuda", size=512, reps=3, grad_gate=SPAT
         coll = r0["collective_ms"]
         rows = [dict(rank=r, peak_gib=res[i]["peak_gib"], ms=float(np.median(res[i]["ms"])))
                 for r, res in enumerate(per_rank)]
-        rec["runs"][key] = dict(ms_per_micro_step=ms, ms_runs=r0["ms"], one_process_ms=ms1,
-                                collective_ms=coll, collective_share=sum(coll.values()) / ms,
-                                one_process_peak_gib=one["peak_gib"], per_rank=rows,
-                                loss=r0["metrics"][0]["loss"], **check)
+        out[key] = dict(ms_per_micro_step=ms, ms_runs=r0["ms"], one_process_ms=ms1,
+                        collective_ms=coll, collective_share=sum(coll.values()) / ms,
+                        one_process_peak_gib=one["peak_gib"], per_rank=rows,
+                        loss=r0["metrics"][0]["loss"], **check)
         peaks = ", ".join("not measured" if row["peak_gib"] is None else f"{row['peak_gib']:.3f}"
                           for row in rows)
         one_peak = "not measured" if one["peak_gib"] is None else f"{one['peak_gib']:.3f}"
-        _log(f"{what} (NestedUNet 3-class DS, {size}^2, global b={b}, 3class_advanced, "
-             f"accumulation 2): loss {r0['metrics'][0]['loss']:.7f} vs one process "
+        model = ("NestedUNet 3-class DS, 3class_advanced" if arch == "nested_unet" else
+                 f"{arch} 3-class, the inspection recipe's combined loss")
+        _log(f"{what} ({model}, {size}^2, global b={b}, accumulation 2): loss {r0['metrics'][0]['loss']:.7f} vs one process "
              f"{one['metrics'][0]['loss']:.7f}; "
              + (f"gradient {check['grad']:.3e} of its norm from the one-process step "
                 f"({check['grad_vs_float64']:.3e} from its float64, the one-process fp32 "
@@ -3782,8 +3953,134 @@ def phase_spatial_train(card="", device="cuda", size=512, reps=3, grad_gate=SPAT
              + ", ".join(f"{k} {v:.3f} ms" for k, v in coll.items())
              + f" = {sum(coll.values()) / ms:.1%} (rank 0); peak per rank {peaks} GiB, one "
                f"process {one_peak} GiB [{card}]")
-    rec["seconds"] = round(time.time() - t0, 1)
-    return rec
+    return out
+
+
+def _train_label(run: dict) -> str:
+    """A train run's name, prefixed with its arch where that is not the
+    NestedUNet."""
+    return run["name"] if run["arch"] == "nested_unet" else f"{run['arch']} {run['name']}"
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the model zoo on the spatial axis (ranks of one gloo group on one card)
+# ---------------------------------------------------------------------------
+
+# the zoo's models whose logits keep the input's size: they train on stripes
+SPATIAL_ZOO_TRAIN = ("lightweight:custom", "simple_unet")
+
+
+def spatial_zoo_plan(H=448, W=800, b=4, model_size=None):
+    """(runs, archs) of `phase_spatial_zoo`: `spatial_plan`'s run tuples of
+    two_stage on b HxW `synthetic_frames`, every arch of MODEL_ARCHS in
+    fp32 and bf16 over 1 x 2, and lightweight:shufflenet_v2_x1_0 in fp32
+    over 1 x 4 on the first b // 2 frames (two ranks hold none); `archs`
+    maps each run's name to its arch. `model_size` replaces the 512^2 model
+    input (a rehearsal on the CPU), widened where it is under one stripe
+    unit a rank."""
+    from unet_tpu_torch.cli.main import _build_model
+    from unet_tpu_torch.pipeline import presets
+
+    frames = synthetic_frames(b, H, W, seed=66)
+    runs, archs = [], {}
+
+    def cfg(arch, n):
+        if model_size is None:
+            return presets.two_stage()
+        with torch.device("meta"):
+            m = max(model_size, n * _build_model(3, arch, "float32").stripe_unit)
+        return presets.two_stage().replace_in("preprocess", model_size=(m, m))
+
+    for arch in MODEL_ARCHS:
+        for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+            archs[arch + suffix] = arch
+            runs.append((arch + suffix, (1, 2), dtype, cfg(arch, 2), frames))
+    arch = "lightweight:shufflenet_v2_x1_0"
+    archs[f"{arch} b={b // 2}"] = arch
+    runs.append((f"{arch} b={b // 2}", (1, 4), torch.float32, cfg(arch, 4), frames[:b // 2]))
+    return runs, archs
+
+
+def _se_plane_bytes(arch: str, dtype: torch.dtype, size: int, device) -> int:
+    """Bytes per frame of the planes that squeeze-excitation's global means
+    read in a forward of `arch` at size^2 (each rank of a spatial group
+    gathers them whole, receiving (n - 1) / n of them); 0 without SE."""
+    from unet_tpu_torch.models.mobilenet import _SE
+
+    model = _spatial_model(arch, dtype).to(device)
+    total = [0]
+    hooks = [m.register_forward_hook(
+        lambda m, i, o: total.__setitem__(0, total[0] + i[0].numel() * i[0].element_size()))
+        for m in model.modules() if isinstance(m, _SE)]
+    with torch.inference_mode():
+        model(torch.zeros((1, 3, size, size), device=device))
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+def phase_spatial_zoo(card="", device="cuda", **kw):
+    """The model zoo on the spatial axis (phase 14), with phase 12's harness:
+    ranks of one gloo group on one card, one spawn of 2 ranks for every 1 x
+    2 run and one of 4 for the 1 x 4 run, the kernels built before they
+    start, seeded weights at each model's full width (`seeded_model`). The
+    runs of `spatial_zoo_plan` through `parallel.shard_pipeline_step(...,
+    spatial=True)` against `build_step` on the same card and frames by
+    `_spatial_check`'s rules, the fp32 tie gap scaled by the largest logit
+    where it passes 1 (the seeded residual encoders' logits reach 1e3, as
+    in `phase_models`); B1 twice per batch on a rank with frames, never on
+    one without. The train step of SPATIAL_ZOO_TRAIN (the inspection
+    recipe's combined loss, `seeded_train_model(arch=...)`, one optimizer
+    step of two fp32 micro-steps at train_size^2, global b=2) over 1 x 2
+    against `make_train_step` in this process by `phase_spatial_train`'s
+    gates. Squeeze-excitation's gathered bytes per frame of each MobileNet.
+    ms per batch at S = 1 and 2, the transport's share, peak memory per
+    rank against one process (processes that share one card: not a scaling
+    figure). Returns the record."""
+    return run_spatial_phases([functools.partial(_spatial_zoo_part, card, device, **kw)],
+                              device)[0]
+
+
+def _spatial_zoo_part(card="", device="cuda", H=448, W=800, b=4, model_size=None,
+                      train_size=512, reps=1, grad_gate=SPATIAL_TRAIN_GRAD) -> dict:
+    """`phase_spatial_zoo`'s share of `run_spatial_phases` (its
+    arguments)."""
+    t0 = time.time()
+    runs, archs = spatial_zoo_plan(H, W, b, model_size)
+    want = _spatial_references(runs, archs, device, reps)
+    batch = _train_batch(2, train_size, seed=97)
+    batches = {(arch, 2): batch for arch in SPATIAL_ZOO_TRAIN}
+    train_runs = tuple(("fp32", (1, 2), "float32", False, arch) for arch in SPATIAL_ZOO_TRAIN)
+    twant = _spatial_train_references(train_runs, batches, device, reps)
+    rec = dict(backend="gloo", device=device, runs={}, se_plane_bytes_per_frame={})
+    for arch in MODEL_ARCHS:
+        if "mobilenet" in arch:
+            size = runs[[r[0] for r in runs].index(arch)][3].preprocess.model_size[0]
+            got = {str(dt).replace("torch.", ""): _se_plane_bytes(arch, dt, size, device)
+                   for dt in (torch.float32, torch.bfloat16)}
+            rec["se_plane_bytes_per_frame"][arch] = got
+            _log(f"spatial zoo {arch}: squeeze-excitation reads {got} bytes of planes a frame "
+                 f"at {size}^2; each of n ranks gathers (n - 1) / n of them")
+    keys = {(r[0], r[4]) for r in train_runs}
+
+    def finish(ranks):
+        for per_rank in ranks.values():
+            for i, r0 in enumerate(per_rank[0][0]):
+                if r0["name"] in want:
+                    key = f"{r0['name']} {r0['shape'][0]}x{r0['shape'][1]}"
+                    rec["runs"][key] = _spatial_check([res[0][i] for res in per_rank], want,
+                                                      r0["name"].rsplit("_", 1)[0], card,
+                                                      scale_gap=True)
+        rec["train"] = _spatial_train_checks(_own_train(ranks, keys), twant, train_size, card,
+                                             grad_gate)
+        _log(f"spatial zoo: {len(rec['runs'])} inspection runs and {len(rec['train'])} train "
+             f"runs")
+        return rec
+
+    return dict(runs=runs, archs=archs, train_runs=train_runs, batches=batches,
+                reps={**{r[0]: reps for r in runs}, **dict.fromkeys(keys, reps)}, rec=rec,
+                finish=finish, prep_s=time.time() - t0)
+
 
 
 @contextlib.contextmanager
@@ -4022,13 +4319,15 @@ def main() -> int:
     for name, r in mesh["steps"].items():
         engine_counts[f"mesh_{name}"] = r["launches"]
 
-    # -- the spatial axis: 2 and 4 ranks of one gloo group on the card, the
-    # striped steps against build_step
-    spatial = phase_spatial(card=card)
-
-    # -- the spatial train step: 1 x 2 and 2 x 2 ranks of one gloo group on
-    # the card against make_train_step
-    spatial_train = phase_spatial_train(card=card)
+    # -- phases 12-14, one spawn of 2 ranks and one of 4 on the card (a gloo
+    # group): the spatial axis, the striped steps against build_step; the
+    # spatial train step against make_train_step; the model zoo on the
+    # spatial axis, every --arch's inspection step over 1 x 2 (shufflenet
+    # also 1 x 4) and the train step of the two models whose logits keep
+    # the input's size
+    spatial, spatial_train, spatial_zoo = run_spatial_phases(
+        [functools.partial(part, card) for part in (_spatial_part, _spatial_train_part,
+                                                    _spatial_zoo_part)], "cuda")
 
     # the mma.sync kernel has no main-path launch (conv0_0.conv1 takes the c3
     # kernel): its entry holds its time forced at that site, the c3 kernel's
@@ -4060,7 +4359,10 @@ def main() -> int:
                 "library_ms": library_ms, "per_launch": per_launch,
                 "spatial_launches_per_rank": {
                     k: [row["counts"].get(name, 0) for row in r["per_rank"]]
-                    for k, r in spatial["runs"].items()}, **extra}
+                    for k, r in spatial["runs"].items()},
+                "spatial_zoo_launches_per_rank": {
+                    k: [row["counts"].get(name, 0) for row in r["per_rank"]]
+                    for k, r in spatial_zoo["runs"].items()}, **extra}
 
     record = {"kernels": [
         entry("cc_propagate", "unet_tpu_torch/csrc/cc_propagate.cu",
@@ -4089,7 +4391,7 @@ def main() -> int:
         "engine": engine, "inspect_engine": gate_engine, "config_runs": config_runs,
         "models_b8": mod_timings, "model_checks": mod_checks, "device_trace": trace,
         "train": train, "export": export, "mesh": mesh, "spatial": spatial,
-        "spatial_train": spatial_train,
+        "spatial_train": spatial_train, "spatial_zoo": spatial_zoo,
         "card": card, "seconds": round(time.time() - t_start, 1)}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

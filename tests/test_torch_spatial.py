@@ -19,8 +19,12 @@ spawned once (`tests/torch_dist.spatial_ranks`) and runs every case:
     step: integer fields bit for bit, float fields within 1e-4
   * the eval step's confusion matrix over 1 x 2 and 2 x 2 against one
     device
-  * the refusals: a model input that leaves a rank under 16 rows, and the
-    model zoo (A15e) in the inspection, train and eval steps
+  * the refusals: a model input that leaves a rank under 16 rows, or
+    under the stripe unit of a zoo model (32 and 64 rows); and the zoo's
+    train and eval steps on stripes: SimpleUNet's run as one process's, the
+    ResNet50 NestedUNet's raise what one process's raise (its logits are a
+    quarter of the input's side); the whole zoo on stripes is
+    tests/test_torch_spatial_zoo.py
 """
 import jax.numpy as jnp
 import numpy as np
@@ -144,7 +148,8 @@ def world2(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("spatial2")
     torch.save({"transport": [2], "forward": [(2, state, 32)],
                 "steps": [(1, 2, list(runs.values()))],
-                "eval": [(1, 2, dict(seed=3), images, labels)], "refuse": [(2, 16)]},
+                "eval": [(1, 2, dict(seed=3), images, labels)],
+                "refuse": [(2, 16, "nested_unet"), (2, 64, "lightweight:shufflenet_v2_x1_0")]},
                tmp / "cases.pt")
     ranks = td.run_ranks(tmp, 2, "spatial_ranks", str(tmp / "cases.pt"))
     return dict(ranks=ranks, state=state, x=x, jax_logits=jax_logits, runs=runs,
@@ -170,7 +175,8 @@ def world4(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("spatial4")
     torch.save({"transport": [4], "forward": [(4, state, 64)],
                 "steps": [(2, 2, [(hr_kw, _high_res_cfgs()[1], frames, None)])],
-                "eval": [(2, 2, dict(seed=3), images, labels)], "refuse": [(4, 32)]},
+                "eval": [(2, 2, dict(seed=3), images, labels)],
+                "refuse": [(4, 32, "nested_unet"), (4, 64, "nested_unet_resnet50")]},
                tmp / "cases.pt")
     ranks = td.run_ranks(tmp, 4, "spatial_ranks", str(tmp / "cases.pt"))
     return dict(ranks=ranks, state=state, x=x, jax_logits=jax_logits, full=full,
@@ -283,21 +289,44 @@ def test_spatial_eval_step_sums_the_confusion_matrix(world2, world4):
 
 
 def test_spatial_refusals(world2, world4):
-    for w, n in ((world2, 2), (world4, 4)):
+    """The refusals that stay: a rank under one stripe unit of model-input
+    rows (16 for the NestedUNet, 64 for shufflenet, 32 for the ResNet50
+    NestedUNet). The zoo's train and eval steps on stripes: SimpleUNet's run
+    and agree with one process (float32 gates; the whole comparison is
+    tests/test_torch_spatial_zoo.py), the ResNet50 NestedUNet's raise the
+    error its one-process steps raise, before any collective."""
+    for w, n, unit in ((world2, 2, 64), (world4, 4, 32)):
+        one = td.zoo_steps(None, n)
         for res in w["ranks"]:
             assert "every rank needs at least 16 rows" in res["refuse"][0], (n, res["refuse"])
-            # the zoo and the ResNet50 NestedUNet, train and eval steps alike
-            assert len(res["zoo"]) == 4 and all("A15e" in m for m in res["zoo"]), res["zoo"]
+            assert (f"multiples of {unit} model-input rows" in res["refuse"][1]
+                    and f"every rank needs at least {unit} rows" in res["refuse"][1]), res["refuse"]
+            zoo_ = res["zoo"]
+            for k in ("resnet50 train", "resnet50 eval"):
+                assert zoo_[k][0] == one[k][0] == "RuntimeError", (n, k, zoo_[k], one[k])
+            got, want = zoo_["simple_unet"], one["simple_unet"]
+            assert torch.equal(got["cm"], want["cm"]), n
+            assert abs(got["loss"] / want["loss"] - 1) <= 1e-4, (n, got, want)
+            assert abs(got["grad_norm"] / want["grad_norm"] - 1) <= 1e-3, (n, got, want)
     mesh = parallel.make_mesh(device="cpu")
-    # the spatial train step runs (tests/test_torch_spatial_train.py); in one
-    # process TrainRunCfg(n_spatial=2) falls back to the data axis
+    # in one process TrainRunCfg(n_spatial=2) falls back to the data axis
     assert train_mesh(2, "cpu", 2).shape == (1, 1)
     cfg = presets.two_stage().replace_in("preprocess", model_size=(32, 32))
-    for model in (NestedUNet(3, pretrained_encoder=True), zoo.port_model(
+    frames = synthetic_frames(2, 48, 64, seed=4)
+    for model in (NestedUNet(3, pretrained_encoder=True).eval(), zoo.port_model(
             "simple_unet", zoo.jax_variables("simple_unet", 3, size=32))):
-        with pytest.raises(NotImplementedError, match="A15e"):
-            parallel.shard_pipeline_step(stages.build_step(model, cfg, device="cpu"), mesh,
-                                         spatial=True)
+        step = stages.build_step(model, cfg, device="cpu")
+        got = td.leaves_numpy(parallel.shard_pipeline_step(step, mesh, spatial=True)(frames))
+        _assert_outputs(got, td.leaves_numpy(step(frames)), type(model).__name__)
+        with pytest.raises(ValueError, match="custom-encoder NestedUNet"):
+            parallel.shard_pipeline_step(stages.build_step(
+                model, cfg.replace_in("segment", fast_forward=True), device="cpu"), mesh,
+                spatial=True)
+    from chip_smoke import ColourClassModel
+
+    with pytest.raises(NotImplementedError, match="no forward on H stripes"):
+        parallel.shard_pipeline_step(stages.build_step(ColourClassModel(), cfg, device="cpu"),
+                                     mesh, spatial=True)
     with pytest.raises(TypeError, match="build_step"):
         parallel.shard_pipeline_step(lambda f, p=None: None, mesh, spatial=True)
 

@@ -143,13 +143,19 @@ def pipeline_ranks(calls):
 # the train loop
 # ---------------------------------------------------------------------------
 
+# the inspection recipe's loss and optimizer (train.recipes.recipe_inspection)
+INSPECTION = dict(loss=dict(kind="combined"),
+                  optim=dict(lr=1e-4, schedule="cosine", total_steps=0))
+
+
 def loop_ranks(root: str, out: str, epochs: int, batch: int, n_spatial: int = 1,
-               filters=None):
+               filters=None, arch: str = "nested_unet"):
     """`train_model` of 3class_advanced's loss and optimizer at 32^2 over
     every rank of the group (`TrainRunCfg.n_spatial`; the NestedUNet at
     `filters` widths, its own by default), augmentation off: the result,
     the history rank 0 logged, how many checkpoints this rank wrote, and
-    the model's state after the run."""
+    the model's state after the run. `arch` "lightweight:custom": the
+    inspection recipe's model (deep supervision), loss and optimizer."""
     import os
 
     from unet_tpu_torch.data.dataset import REMAP_7_TO_3, SegmentationDataset
@@ -166,12 +172,20 @@ def loop_ranks(root: str, out: str, epochs: int, batch: int, n_spatial: int = 1,
           for s in ("train", "val")]
     train = Loader(ds[0], batch, shuffle=True, drop_last=True, seed=3, with_indices=True)
     val = Loader(ds[1], batch, prefetch=1)
+    lw = arch == "lightweight:custom"
     cfg = loop.TrainRunCfg(epochs=epochs, num_classes=3, image_size=32, target_miou=None,
                            ckpt_dir=out, save_every_epochs=1, seed=5, track_worst_samples=3,
-                           n_spatial=n_spatial, loss=LossCfg(**LOSS),
-                           optim=OptimCfg(**dict(OPTIM, total_steps=0)))
+                           n_spatial=n_spatial,
+                           loss=LossCfg(**(INSPECTION["loss"] if lw else LOSS)),
+                           optim=OptimCfg(**(INSPECTION["optim"] if lw else
+                                             dict(OPTIM, total_steps=0))))
     torch.manual_seed(0)
-    model = NestedUNet(3, deep_supervision=True) if filters is None else train_net(filters)
+    if lw:
+        from unet_tpu_torch.models import LightweightNestedUNet
+
+        model = LightweightNestedUNet(3, "custom", deep_supervision=True)
+    else:
+        model = NestedUNet(3, deep_supervision=True) if filters is None else train_net(filters)
     res = loop.train_model(model, train, val, cfg, device="cpu")
     hist = Path(out) / "training_history.json"
     return dict(best_miou=res["best_miou"], final_miou=res["final_miou"],
@@ -342,7 +356,6 @@ def forward_checks(mesh, state, size: int) -> dict:
 
     from unet_tpu_torch.models import fast_forward as ff
     from unet_tpu_torch.models import quantized as q
-    from unet_tpu_torch.models.unetpp import striped_forward
     from unet_tpu_torch.parallel import spatial as sp
 
     model = nested_unet(state=state)
@@ -354,11 +367,11 @@ def forward_checks(mesh, state, size: int) -> dict:
     out = {}
     with torch.inference_mode():
         nchw = lambda t: t.permute(0, 3, 1, 2).contiguous()
-        got = striped_forward(model, nchw(xs), st)
+        got = model(nchw(xs), st)
         out["fp32"] = torch.equal(got, model(nchw(x))[:, :, s:e])
         out["fp32_stripe"] = got
         m16 = nested_unet(state=state, dtype=torch.bfloat16)
-        out["bf16 model"] = torch.equal(striped_forward(m16, nchw(xs), st), m16(nchw(x))[:, :, s:e])
+        out["bf16 model"] = torch.equal(m16(nchw(xs), st), m16(nchw(x))[:, :, s:e])
         fp = ff.prepare_fast_params(model.state_dict(), torch.bfloat16)
         out["bf16 fast"] = torch.equal(ff.nested_unet_forward_fast_striped(fp, xs, st),
                                        ff.nested_unet_forward_fast(fp, x)[:, s:e])
@@ -383,18 +396,64 @@ def leaves_numpy(out, prefix: str = "") -> dict:
     return d
 
 
+def zoo_net(arch: str, state, dtype: str = "float32"):
+    """The 3-class model of `arch` (`cli --arch`, built by the CLI's
+    `_build_model` without deep-supervision heads) with `state`'s weights,
+    compute type `dtype`; eval mode."""
+    from unet_tpu_torch.cli.main import _build_model
+
+    with torch.device("meta"):   # no initialisation: the weights are loaded
+        model = _build_model(3, arch, dtype, deep_supervision=False)
+    model.to_empty(device="cpu").load_state_dict(state)
+    return model.eval()
+
+
 def spatial_step_runs(mesh, runs) -> list:
-    """For each (model kwargs of `nested_unet`, cfg, frames, prev) of `runs`:
+    """For each (model kwargs, cfg, frames, prev) of `runs`:
     `shard_pipeline_step(build_step(...), mesh, spatial=True)` on the CPU,
-    its outputs as `leaves_numpy`."""
+    its outputs as `leaves_numpy`; the model `zoo_net(**kwargs)` where the
+    kwargs name an `arch`, else `nested_unet(**kwargs)`."""
     from unet_tpu_torch.parallel import shard_pipeline_step
     from unet_tpu_torch.pipeline import stages
 
     out = []
     for model_kw, cfg, frames, prev in runs:
-        step = shard_pipeline_step(stages.build_step(nested_unet(**model_kw), cfg, device="cpu"),
-                                   mesh, spatial=True)
+        model = zoo_net(**model_kw) if "arch" in model_kw else nested_unet(**model_kw)
+        step = shard_pipeline_step(stages.build_step(model, cfg, device="cpu"), mesh, spatial=True)
         out.append(leaves_numpy(step(frames, prev)))
+    return out
+
+
+def zoo_input(arch_unit: int, units: int, seed: int, width: int = 64):
+    """(2, 3, units x arch_unit, width) uniform model input, the same on
+    every rank."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.rand((2, 3, units * arch_unit, width), generator=g)
+
+
+def zoo_forward_checks(mesh, cases) -> list:
+    """For each (arch, state, units, seed, width) of `cases`, in float32 and in
+    bfloat16 (the model's compute dtype): the striped eval forward on this
+    rank's stripe of `zoo_input` (units x the model's stripe unit rows)
+    against the rows of the unsharded forward, {dtype: (bit for bit, the
+    stripe's logits, the logits' stripe bounds)}. A width that the model's
+    stride does not divide takes the lightweight decoder's general resize."""
+    from unet_tpu_torch.parallel import spatial as sp
+
+    out = []
+    for arch, state, units, seed, width in cases:
+        res = {}
+        for dtype in ("float32", "bfloat16"):
+            model = zoo_net(arch, state, dtype)
+            x = zoo_input(model.stripe_unit, units, seed, width)
+            st = sp.Stripes(sp.stripe_bounds(x.shape[2], mesh.spatial_size, model.stripe_unit),
+                            mesh.spatial_rank, mesh.spatial_group)
+            with torch.inference_mode():
+                got = model(x[:, :, st.start:st.end].contiguous(), st)
+                level = st.at(got.shape[2])
+                want = model(x)[:, :, level.start:level.end]
+            res[dtype] = (torch.equal(got, want), got, level.bounds)
+        out.append(res)
     return out
 
 
@@ -433,36 +492,70 @@ def spatial_ranks(path):
                        for n, state, size in cases["forward"]],
            "steps": [spatial_step_runs(mesh(d, n), runs) for d, n, runs in cases["steps"]],
            "eval": [spatial_eval(mesh(d, n), kw, im, lb) for d, n, kw, im, lb in cases["eval"]],
+           "zoo_forward": [zoo_forward_checks(mesh(world // n, n), c)
+                           for n, c in cases.get("zoo_forward", [])],
            "refuse": []}
-    for n, height in cases["refuse"]:
+    for n, height, arch in cases["refuse"]:
         cfg = presets.two_stage().replace_in("preprocess", model_size=(height, height))
+        model = nested_unet() if arch == "nested_unet" else zoo_net(
+            arch, _seeded_state(arch))
         try:
-            shard_pipeline_step(stages.build_step(nested_unet(), cfg, device="cpu"),
+            shard_pipeline_step(stages.build_step(model, cfg, device="cpu"),
                                 mesh(world // n, n), spatial=True)
             res["refuse"].append(None)
         except ValueError as e:
             res["refuse"].append(str(e))
-    res["zoo"] = zoo_refusals(mesh(world // n, n)) if cases["refuse"] else []
+    res["zoo"] = zoo_steps(mesh(world // n, n)) if cases["refuse"] else {}
     return res
 
 
-def zoo_refusals(mesh) -> list:
-    """The messages of the train and the eval step (`make_train_step`,
-    `make_eval_step` over `mesh`, its spatial axis) on SimpleUNet and on the
-    ResNet50-encoder NestedUNet: they run only on whole planes."""
+def _seeded_state(arch: str) -> dict:
+    from chip_smoke import seeded_model
+
+    return seeded_model(arch).state_dict()
+
+
+def zoo_batch(rows: int, seed: int):
+    """A (2, rows, 32, 3) float32 batch and its (2, rows, 32) labels in 0..2."""
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    return (r.random((2, rows, 32, 3), dtype=np.float32),
+            r.integers(0, 3, (2, rows, 32)).astype(np.int64))
+
+
+def zoo_steps(mesh=None, n_spatial: int = 1) -> dict:
+    """The train and the eval step (`make_train_step`, `make_eval_step`,
+    over `mesh` and its spatial axis on this rank's block of the global
+    batch, `zoo_batch` of 16 rows a spatial rank; without a mesh the whole
+    batch of `n_spatial` x 16 rows) on SimpleUNet (torch's initialisation from seed 0): one
+    micro-step's loss and grad norm and the eval's confusion matrix; and
+    on the ResNet50-encoder NestedUNet, whose logits are a quarter of the
+    input's side, the error of each step: (type name, message)."""
     from unet_tpu_torch.models import NestedUNet, SimpleUNet
+    from unet_tpu_torch.parallel import put_batch
     from unet_tpu_torch.train import trainer as T
 
-    x = torch.zeros((1, 3, 16, 32))
-    y = torch.zeros((1, 16, 32), dtype=torch.long)
-    out = []
-    for model in (SimpleUNet(3), NestedUNet(3, pretrained_encoder=True)):
-        for step in (T.make_train_step(T.LossCfg(), mesh=mesh), T.make_eval_step(3, mesh=mesh)):
-            try:
-                step(T.create_train_state(model, T.OptimCfg(), "cpu"), x, y)
-                out.append("ran")
-            except NotImplementedError as e:
-                out.append(str(e))
+    n = n_spatial if mesh is None else mesh.spatial_size
+    images, labels = zoo_batch(16 * n, seed=n)
+    if mesh is None:
+        x, y = torch.from_numpy(images), torch.from_numpy(labels)
+    else:
+        x, y = put_batch(mesh, images, labels, local=False)
+    x, y = x.permute(0, 3, 1, 2).contiguous(), y.long()
+    torch.manual_seed(0)
+    state = T.create_train_state(SimpleUNet(3), T.OptimCfg(**OPTIM), "cpu")
+    _, m = T.make_train_step(T.LossCfg(kind="combined"), mesh=mesh)(state, x, y)
+    out = {"simple_unet": dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                               cm=T.make_eval_step(3, mesh=mesh)(state, x, y))}
+    resnet = T.create_train_state(NestedUNet(3, pretrained_encoder=True), T.OptimCfg(), "cpu")
+    for name, step in (("train", T.make_train_step(T.LossCfg(), mesh=mesh)),
+                       ("eval", T.make_eval_step(3, mesh=mesh))):
+        try:
+            step(resnet, x, y)
+            out[f"resnet50 {name}"] = None
+        except Exception as e:   # the type is what the caller compares
+            out[f"resnet50 {name}"] = (type(e).__name__, str(e))
     return out
 
 
@@ -533,16 +626,23 @@ def transport_grad_checks(mesh) -> dict:
 
 
 def train_net(filters=NARROW, state=None, seed: int = 0, dtype=torch.float32,
-              remat: bool = False):
+              remat: bool = False, arch: str = "nested_unet"):
     """The 3-class NestedUNet with deep supervision at `filters` widths in
     train mode: `state`'s weights, else flax's initialisation drawn with
-    `seed` (train.trainer.flax_init). `dtype` float64: the parameters too."""
-    from unet_tpu_torch.models import unetpp
+    `seed` (train.trainer.flax_init). `dtype` float64: the parameters too.
+    `arch` "lightweight:custom" (deep supervision) or "simple_unet": that
+    model of the zoo at its own widths instead."""
+    from unet_tpu_torch.models import LightweightNestedUNet, SimpleUNet, unetpp
     from unet_tpu_torch.train.trainer import flax_init
 
     saved, unetpp.NB_FILTER = unetpp.NB_FILTER, tuple(filters)
     try:
-        model = unetpp.NestedUNet(3, deep_supervision=True, dtype=dtype, remat=remat)
+        if arch == "simple_unet":
+            model = SimpleUNet(3, dtype=dtype)
+        elif arch == "lightweight:custom":
+            model = LightweightNestedUNet(3, "custom", deep_supervision=True, dtype=dtype)
+        else:
+            model = unetpp.NestedUNet(3, deep_supervision=True, dtype=dtype, remat=remat)
     finally:
         unetpp.NB_FILTER = saved
     if state is None:
@@ -594,6 +694,17 @@ def spatial_train_case(case: dict, mesh=None) -> dict:
                 local_dice=float(L.dice_loss(seen[0].float(), y)))
 
 
+def _state_digest(tensors: dict) -> str:
+    """sha256 of a dict of tensors' bytes, in key order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        h.update(k.encode())
+        h.update(tensors[k].detach().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
 def spatial_train_ranks(path):
     """Every case saved at `path` on every rank of the group, one mesh per
     shape: {"transport": [n_spatial...], "steps": [((n_data, n_spatial),
@@ -601,8 +712,10 @@ def spatial_train_ranks(path):
     (variables, images, labels))...] through `train_case` (the full-width
     model; the gradient on the mesh's first rank only, a digest of the
     parameters on every rank), "loop": [(root, out, epochs, batch,
-    n_spatial, filters)...] through `loop_ranks`, "mesh_of": [(batch,
-    n_spatial)...] the shape `train.loop.train_mesh` picks}."""
+    n_spatial, filters, arch)...] through `loop_ranks`, "mesh_of": [(batch,
+    n_spatial)...] the shape `train.loop.train_mesh` picks, "digests": True
+    for full-width models: each case's parameters and gradient as digests,
+    the gradient whole on the group's first rank only}."""
     import hashlib
 
     from unet_tpu_torch.parallel import make_mesh
@@ -620,6 +733,13 @@ def spatial_train_ranks(path):
     res = {"transport": [transport_grad_checks(mesh((world // n, n))) for n in cases["transport"]],
            "steps": [spatial_train_case(case, mesh(shape)) for shape, case in cases["steps"]],
            "jax": [], "loop": [], "mesh_of": []}
+    if cases.get("digests"):   # full-width models: digests, the gradient whole on rank 0
+        for r in res["steps"]:
+            for k in ("params", "grads"):
+                r[f"{k}_digest"] = _state_digest(r[k])
+            r["params"] = None
+            if dist.get_rank():
+                r["grads"] = None
     for shape, (variables, images, labels) in cases.get("jax", []):
         r = train_case(variables, images, labels, mesh(shape))
         flat = torch.cat([v.reshape(-1) for v in r["grads"].values()])
@@ -632,3 +752,4 @@ def spatial_train_ranks(path):
     for args in cases.get("loop", []):
         res["loop"].append(loop_ranks(*args))
     return res
+

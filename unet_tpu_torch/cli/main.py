@@ -25,7 +25,10 @@ its sidecar.
 `bench` is not ported yet (ROADMAP A5): it names its item and exits
 non-zero. `train` runs over every rank that `torchrun --nproc-per-node N`
 starts (parallel.mesh's data axis; a recipe's `TrainRunCfg.n_spatial` adds
-the spatial axis, as in the JAX package). An
+the spatial axis, as in the JAX package, for the models whose logits keep
+the input's size: nested_unet, simple_unet and lightweight:custom). Every
+--arch runs the inspection step on the spatial axis
+(`parallel.shard_pipeline_step(spatial=True)`). An
 orbax checkpoint directory of the JAX package is read after
 `convert_orbax.py` has turned it into a .pth.
 

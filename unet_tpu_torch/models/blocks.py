@@ -1,18 +1,22 @@
 """Building blocks of the UNet family (counterpart of
 unet_tpu/models/blocks.py), NCHW; `ComputeDtype`, the compute type of every
 model of the port; `BatchNorm2d`, whose train mode is flax's; `remat`, the
-recomputed block of `NestedUNet(remat=True)`; and `fp32_convs`, the cuDNN
-precision pin of the float32 forwards and train steps."""
+recomputed block of `NestedUNet(remat=True)`; `fp32_convs`, the cuDNN
+precision pin of the float32 forwards and train steps; and the forwards on
+H stripes of the mesh's spatial axis (`ComputeDtype.forward(x, stripes)`,
+`on_stripes`, `striped_op`)."""
 from __future__ import annotations
 
 import contextlib
 import threading
+from typing import Callable, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.func import functional_call
 
+from unet_tpu_torch.parallel import spatial
 from unet_tpu_torch.parallel.mesh import all_sum, data_size
 
 
@@ -24,14 +28,37 @@ class ComputeDtype(nn.Module):
     BN statistics are cast too; in train mode BatchNorm's parameters and
     statistics stay float32, as flax keeps them (its statistics reduce in
     float32), and the statistics' updates land in the model's own buffers.
-    Subclasses write `compute(x)`; `forward` casts and calls it."""
+    Subclasses write `compute(x)`; `forward` casts and calls it.
+
+    With `stripes` (parallel.spatial.Stripes), `forward` is the model on an
+    H stripe, cast the same way: `x` (B, Cin, rows, W) holds the model
+    input's rows [stripes.start, stripes.end), on bounds that are multiples
+    of `stripe_unit`, and the outputs hold the same stripe at their own
+    level (logits at 1/logits_stride of the input's side: rows [start / k,
+    end / k)). A collective of the spatial group; subclasses write
+    `striped_compute(x, stripes)`. In eval mode the logits equal the whole
+    forward's on one device bit for bit on the CPU (at batch 1 the CPU's
+    conv may sum a slab in another order: ROADMAP C8; cuDNN may pick
+    another algorithm for a stripe's shape): every op with a window over
+    rows runs on its halo slab (`on_stripes`), BatchNorm, activations,
+    residual adds and channel ops are row-local, a global mean reads the
+    gathered plane, and the upsamples read the global source rows of their
+    taps. Train mode: the NestedUNet, `LightweightNestedUNet("custom")` and
+    `SimpleUNet`, the models whose logits keep the input's size.
+
+    `stripe_unit`: the model's total stride, the multiple of rows its
+    stripes' bounds fall on; `logits_stride`: the input's side over the
+    logits' (1 where the logits keep the input's size)."""
 
     dtype: torch.dtype = torch.float32
+    stripe_unit: int = spatial.UNIT
+    logits_stride: int = 1
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, stripes: Optional[spatial.Stripes] = None):
         if next(self.parameters()).dtype != self.dtype:   # not yet inside the cast call
-            return functional_call(self, self._cast_state(), (x.to(self.dtype),))
-        return self.compute(x)
+            return functional_call(self, self._cast_state(), (x.to(self.dtype),),
+                                   {"stripes": stripes})
+        return self.compute(x) if stripes is None else self.striped_compute(x, stripes)
 
     def _cast_state(self) -> dict:
         keep = set()
@@ -45,6 +72,44 @@ class ComputeDtype(nn.Module):
 
     def compute(self, x: torch.Tensor):
         raise NotImplementedError
+
+    def striped_compute(self, x: torch.Tensor, stripes: spatial.Stripes):
+        raise NotImplementedError
+
+
+def striped_op(op: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
+               stripes: spatial.Stripes, kernel: int = 1, stride: int = 1,
+               padding: int = 0) -> torch.Tensor:
+    """`op`, a window of `kernel` rows at `stride` with `padding` (a conv or
+    a pool), on this rank's stripe of `x` (its layout `stripes.at`): on its
+    halo slab (`spatial.conv_halo`), or on the stripe itself where the op
+    is row-local (a 1x1 conv at any stride, a 2x2/2 pool)."""
+    r = spatial.conv_halo(kernel, stride, padding)
+    if r == 0:
+        return op(x)
+    return spatial.halo(op, [x], stripes.at(x.shape[2]), r, 2, stride)
+
+
+def on_stripes(m: nn.Module, x: torch.Tensor, stripes: spatial.Stripes) -> torch.Tensor:
+    """`m(x)` on this rank's stripe of `x`, `stripes` the model input's
+    layout: a module with a `striped(x, stripes)` method runs it; a
+    Sequential runs its modules in turn; a conv or max pool runs on its
+    halo slab (`striped_op`); any other module (BatchNorm in eval mode, an
+    activation) is row-local."""
+    if hasattr(m, "striped"):
+        return m.striped(x, stripes)
+    if isinstance(m, nn.Sequential):
+        for layer in m:
+            x = on_stripes(layer, x, stripes)
+        return x
+    if isinstance(m, (nn.Conv2d, nn.MaxPool2d)):
+        k, s, p = (v[0] if isinstance(v, tuple) else v
+                   for v in (m.kernel_size, m.stride, m.padding))
+        return striped_op(m, x, stripes, k, s, p)
+    if isinstance(m, nn.BatchNorm2d) and m.training:
+        raise RuntimeError("train-mode BatchNorm on H stripes runs inside a ConvBlock "
+                           "(its statistics' rows)")
+    return m(x)
 
 
 _recompute = threading.local()
@@ -102,7 +167,7 @@ class BatchNorm2d(nn.BatchNorm2d):
     input's type.
 
     `rows` (offset, count): the statistics take only those rows of x, the
-    rank's own rows of an H stripe's halo slab (`unetpp.striped_forward`),
+    rank's own rows of an H stripe's halo slab (`ConvBlock.striped`),
     their count reduced with the sums (stripes may be uneven); every row is
     normalised with them."""
 
@@ -155,6 +220,23 @@ class ConvBlock(nn.Module):
         x = F.relu(self.bn1(self.conv1(x), rows))
         return F.relu(self.bn2(self.conv2(x), rows))
 
+    def striped(self, x: torch.Tensor, stripes: spatial.Stripes,
+                recompute: bool = False) -> torch.Tensor:
+        """The block on its halo slab, 2 rows each side (one exchange for
+        both convs). Train mode: BatchNorm's statistics take the rank's own
+        rows of the slab (`BatchNorm2d(rows=...)`) reduced over both axes,
+        and normalise the halo rows with them; with `recompute`, the block
+        (not its exchange) is recomputed in the backward (`remat`)."""
+        level = stripes.at(x.shape[2])
+        if not self.training:
+            return spatial.halo(self, [x], level, 2, 2)
+        rows = (level.start - max(level.start - 2, 0), level.rows)
+
+        def op(slab):
+            return remat(self, slab, rows) if recompute else self(slab, rows)
+
+        return spatial.halo(op, [x], level, 2, 2)
+
 
 class DoubleConv(nn.Sequential):
     """conv3x3 -> ReLU, twice, no BN: SimpleUNet's block (counterpart of
@@ -164,6 +246,11 @@ class DoubleConv(nn.Sequential):
     def __init__(self, cin: int, cout: int):
         super().__init__(nn.Conv2d(cin, cout, 3, padding=1), nn.ReLU(),
                          nn.Conv2d(cout, cout, 3, padding=1), nn.ReLU())
+
+    def striped(self, x: torch.Tensor, stripes: spatial.Stripes) -> torch.Tensor:
+        """Both convs on one halo slab, 2 rows each side (no BatchNorm: the
+        same in train and eval mode)."""
+        return spatial.halo(self, [x], stripes.at(x.shape[2]), 2, 2)
 
 
 def max_pool2(x: torch.Tensor) -> torch.Tensor:

@@ -9,6 +9,12 @@ squeeze-excitation with `fc1`/`fc2`), so a torchvision state dict loads into
 the encoder as it is (models.convert.mobilenet_encoder_state_dict, the
 counterpart of the JAX package's convert_mobilenet_encoder). BatchNorm is
 torchvision's MobileNetV3 one: eps 1e-3. NCHW.
+
+On H stripes (`striped`, eval mode; models.blocks.on_stripes): the
+depthwise and stem convs on their halo slabs (2 rows for 3x3/2, 5x5/2 and
+5x5/1, 1 for 3x3/1), the 1x1 expand and project convs, BatchNorm, the
+activations and the residual add row-local, and squeeze-excitation's mean
+over the plane gathered on every rank.
 """
 from __future__ import annotations
 
@@ -18,7 +24,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from unet_tpu_torch.models.blocks import BatchNorm2d
+from unet_tpu_torch.models.blocks import BatchNorm2d, on_stripes
+from unet_tpu_torch.parallel import spatial
 
 
 def _make_divisible(v: float, divisor: int = 8) -> int:
@@ -94,8 +101,17 @@ class _SE(nn.Module):
         self.fc2 = nn.Conv2d(squeeze, channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s = x.mean(dim=(2, 3), keepdim=True)
-        return x * F.hardsigmoid(self.fc2(F.relu(self.fc1(s))))
+        return x * self._scale(x)
+
+    def _scale(self, plane: torch.Tensor) -> torch.Tensor:
+        s = plane.mean(dim=(2, 3), keepdim=True)
+        return F.hardsigmoid(self.fc2(F.relu(self.fc1(s))))
+
+    def striped(self, x: torch.Tensor, st) -> torch.Tensor:
+        """The mean of the whole plane, gathered on every rank
+        (`spatial.gather_plane`): the same sum, in the same order, as on
+        one device; the product row-local."""
+        return x * self._scale(spatial.gather_plane(x, st.at(x.shape[2]), 2))
 
 
 class _InvertedResidual(nn.Module):
@@ -120,6 +136,10 @@ class _InvertedResidual(nn.Module):
         y = self.block(x)
         return y + x if self.use_res else y
 
+    def striped(self, x: torch.Tensor, st) -> torch.Tensor:
+        y = on_stripes(self.block, x, st)
+        return y + x if self.use_res else y
+
 
 class MobileNetV3Encoder(nn.Module):
     """Five-stage feature pyramid (unet_tpu/models/mobilenet.py:134-161), cut
@@ -142,11 +162,14 @@ class MobileNetV3Encoder(nn.Module):
         self.features = nn.Sequential(*layers)
         self.out_channels = tuple(chans + [last])
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    def forward(self, x: torch.Tensor, st=None) -> Tuple[torch.Tensor, ...]:
         feats = []
         for idx, layer in enumerate(self.features):
-            x = layer(x)
+            x = layer(x) if st is None else on_stripes(layer, x, st)
             if idx + 1 in self.cuts:
                 feats.append(x)
         feats.append(x)
         return tuple(feats)
+
+    def striped(self, x: torch.Tensor, st) -> Tuple[torch.Tensor, ...]:
+        return self(x, st)

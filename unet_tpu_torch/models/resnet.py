@@ -5,6 +5,12 @@ src/models/unetpp_lightweight.py:164-177).
 Blocks keep torchvision's names (`conv1`, `bn1`, ..., `downsample.0`,
 `downsample.1`), BatchNorm eps 1e-5, so torchvision and reference state
 dicts load as they are. NCHW.
+
+On H stripes (`striped`, eval mode; models.blocks.on_stripes): each 3x3
+conv on its halo slab (1 row at stride 1, 2 at stride 2), the stem's 7x7/2
+conv on 4 and its 3x3/2 max pool on 2, the 1x1 convs (the shortcut's
+projection at stride 2 too), BatchNorm, ReLU and the residual add
+row-local.
 """
 from __future__ import annotations
 
@@ -14,7 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from unet_tpu_torch.models.blocks import BatchNorm2d
+from unet_tpu_torch.models.blocks import BatchNorm2d, on_stripes, striped_op
 
 
 def _projection(cin: int, cout: int, stride: int) -> nn.Sequential:
@@ -39,6 +45,11 @@ class BasicBlock(nn.Module):
         y = F.relu(self.bn1(self.conv1(x)))
         return F.relu(self.bn2(self.conv2(y)) + r)
 
+    def striped(self, x: torch.Tensor, st) -> torch.Tensor:
+        r = x if self.downsample is None else on_stripes(self.downsample, x, st)
+        y = F.relu(self.bn1(on_stripes(self.conv1, x, st)))
+        return F.relu(self.bn2(on_stripes(self.conv2, y, st)) + r)
+
 
 class Bottleneck(nn.Module):
     """resnet50 block: 1x1 -> 3x3 (stride) -> 1x1 (x4) with a shortcut."""
@@ -58,6 +69,12 @@ class Bottleneck(nn.Module):
         r = x if self.downsample is None else self.downsample(x)
         y = F.relu(self.bn1(self.conv1(x)))
         y = F.relu(self.bn2(self.conv2(y)))
+        return F.relu(self.bn3(self.conv3(y)) + r)
+
+    def striped(self, x: torch.Tensor, st) -> torch.Tensor:
+        r = x if self.downsample is None else on_stripes(self.downsample, x, st)
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(on_stripes(self.conv2, y, st)))
         return F.relu(self.bn3(self.conv3(y)) + r)
 
 
@@ -111,3 +128,11 @@ class ResNetBasicEncoder(nn.Module):
         x2 = self.layer2(x1)
         x3 = self.layer3(x2)
         return x0, x1, x2, x3, self.layer4(x3)
+
+    def striped(self, x: torch.Tensor, st) -> Tuple[torch.Tensor, ...]:
+        y = F.relu(self.bn1(on_stripes(self.conv1, x, st)))
+        x0 = striped_op(lambda t: F.max_pool2d(t, 3, 2, 1), y, st, 3, 2, 1)
+        x1 = on_stripes(self.layer1, x0, st)
+        x2 = on_stripes(self.layer2, x1, st)
+        x3 = on_stripes(self.layer3, x2, st)
+        return x0, x1, x2, x3, on_stripes(self.layer4, x3, st)

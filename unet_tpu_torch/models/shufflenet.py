@@ -7,6 +7,11 @@ torchvision's layout and keys: `conv1` = Sequential(conv, bn, relu), then
 only) and `branch2`. As in the reference's forward, stage4 is max-pooled
 once more (a fifth stage at stride 64), and conv5 never runs, so the last
 stages are 464 wide. NCHW.
+
+On H stripes (`striped`, eval mode; models.blocks.on_stripes): the
+depthwise 3x3 convs and the stem's 3x3/2 conv and max pool on their halo
+slabs (1 row at stride 1, 2 at stride 2); the 1x1 convs, BatchNorm, ReLU,
+`chunk`, `channel_shuffle` and the fifth stage's 2x2 pool row-local.
 """
 from __future__ import annotations
 
@@ -16,7 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from unet_tpu_torch.models.blocks import BatchNorm2d, max_pool2
+from unet_tpu_torch.models.blocks import BatchNorm2d, max_pool2, on_stripes, striped_op
 
 STAGE_REPEATS = (4, 8, 4)
 STAGE_CHANNELS = (116, 232, 464)  # x1.0
@@ -53,13 +58,17 @@ class _Unit(nn.Module):
             nn.ReLU(), _dw(half, stride), BatchNorm2d(half),
             nn.Conv2d(half, half, 1, bias=False), BatchNorm2d(half), nn.ReLU())
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, st=None) -> torch.Tensor:
+        run = (lambda m, t: m(t)) if st is None else (lambda m, t: on_stripes(m, t, st))
         if self.stride == 1:
             left, right = x.chunk(2, dim=1)
-            out = torch.cat([left, self.branch2(right)], 1)
+            out = torch.cat([left, run(self.branch2, right)], 1)
         else:
-            out = torch.cat([self.branch1(x), self.branch2(x)], 1)
+            out = torch.cat([run(self.branch1, x), run(self.branch2, x)], 1)
         return channel_shuffle(out, 2)
+
+    def striped(self, x: torch.Tensor, st) -> torch.Tensor:
+        return self(x, st)
 
 
 class ShuffleNetV2Encoder(nn.Module):
@@ -83,4 +92,12 @@ class ShuffleNetV2Encoder(nn.Module):
         x1 = self.stage2(x0)
         x2 = self.stage3(x1)
         x3 = self.stage4(x2)
+        return x0, x1, x2, x3, max_pool2(x3)
+
+    def striped(self, x: torch.Tensor, st) -> Tuple[torch.Tensor, ...]:
+        y = on_stripes(self.conv1, x, st)
+        x0 = striped_op(lambda t: F.max_pool2d(t, 3, 2, 1), y, st, 3, 2, 1)
+        x1 = on_stripes(self.stage2, x0, st)
+        x2 = on_stripes(self.stage3, x1, st)
+        x3 = on_stripes(self.stage4, x2, st)
         return x0, x1, x2, x3, max_pool2(x3)

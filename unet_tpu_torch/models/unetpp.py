@@ -25,9 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from torch.func import functional_call
-
-from unet_tpu_torch.models.blocks import ComputeDtype, ConvBlock, max_pool2, remat
+from unet_tpu_torch.models.blocks import ComputeDtype, ConvBlock, max_pool2, on_stripes, remat
 from unet_tpu_torch.models.fast_forward import run_topology
 from unet_tpu_torch.models.resnet import resnet50_stages
 from unet_tpu_torch.parallel import spatial
@@ -119,9 +117,79 @@ class NestedUNet(ComputeDtype):
                     rs(self.ds3_1(x3_1))]
         return out
 
+    @property
+    def stripe_unit(self) -> int:
+        return 32 if self.pretrained_encoder else 16
+
+    @property
+    def logits_stride(self) -> int:
+        return 4 if self.pretrained_encoder else 1
+
+    def striped_compute(self, x: torch.Tensor, st: spatial.Stripes):
+        """`compute` on an H stripe (`blocks.ComputeDtype.forward`). Each
+        ConvBlock runs on its halo slab (`ConvBlock.striped`), the 2x2 pools
+        on stripes whose bounds are even at every level, the ResNet50
+        stages in eval mode as `blocks.on_stripes` runs them, and the 1x1
+        heads are row-local.
+
+        Eval mode: the decoder's upsample reads the global source rows of
+        its taps (`interpolate_rows`); `up_to` decides on the global
+        heights, so the ResNet50 encoder's stride-4 pair stays as it is.
+
+        Train mode (custom encoder; `train.trainer.make_train_step` under a
+        spatial mesh): the outputs of the whole train-mode forward (with
+        deep supervision [out, ds1_3, ds2_2, ds3_1], the heads resized to
+        the input on their stripes, `spatial.resize_rows`), with autograd
+        through the transport; the upsamples take their rows from the slab
+        alone (`interpolate_slab`). With `remat`, each block is recomputed
+        in the backward and its exchange is not."""
+        train = self.training
+        if train and self.pretrained_encoder:
+            raise RuntimeError("the ResNet50-encoder NestedUNet trains on whole planes only: "
+                               "its logits come out at a quarter of the input's side")
+        recompute = self.remat and train and torch.is_grad_enabled()
+        outs = {}
+
+        def block(name, t):
+            outs[name] = getattr(self, name).striped(t, st, recompute)
+            return outs[name]
+
+        def up(t):
+            if train:
+                return spatial.resize_rows(t, st.at(t.shape[2]), 2, 2, interpolate_slab)
+            return spatial.up2x(t, st.at(t.shape[2]), 2, interpolate_rows)
+
+        def cat_up(skip, t):
+            if st.at(t.shape[2]).height == st.at(skip.shape[2]).height:
+                return torch.cat([skip, t], 1)
+            return torch.cat([skip, up(t)], 1)
+
+        if self.pretrained_encoder:
+            x0_0 = on_stripes(self.conv0_0, x, st)
+            x1_0 = on_stripes(self.conv1_0, x0_0, st)
+            x2_0 = on_stripes(self.conv2_0, x1_0, st)
+            x3_0 = on_stripes(self.conv3_0, x2_0, st)
+            x4_0 = on_stripes(self.conv4_0, x3_0, st)
+            x3_1 = block("conv3_1", cat_up(x3_0, x4_0))
+            x2_2 = block("conv2_2", cat_up(x2_0, x3_1))
+            x1_3 = block("conv1_3", cat_up(x1_0, x2_2))
+            y = block("conv0_4", cat_up(x0_0, x1_3))
+        else:
+            y = run_topology(x, block, max_pool2, up, lambda a, b: torch.cat([a, b], 1))
+        out = self.final(y)
+        if not (train and self.deep_supervision):
+            return out
+
+        def to_input(head, t):
+            level = st.at(t.shape[2])
+            return spatial.resize_rows(head(t), level, st.rows // level.rows, 2, interpolate_slab)
+
+        return [out, to_input(self.ds1_3, outs["conv1_3"]), to_input(self.ds2_2, outs["conv2_2"]),
+                to_input(self.ds3_1, outs["conv3_1"])]
+
 
 # ---------------------------------------------------------------------------
-# on H stripes (parallel.spatial, ROADMAP A15c)
+# the decoder's upsample on H stripes (parallel.spatial)
 # ---------------------------------------------------------------------------
 
 def interpolate_rows(slab: torch.Tensor, lo: int, n: int, rows) -> torch.Tensor:
@@ -163,84 +231,3 @@ def interpolate_slab(slab: torch.Tensor, lo: int, n: int, out: int, rows) -> tor
     y = F.interpolate(y, size=(e - s, slab.shape[3] * (out // n)), mode="bilinear",
                       align_corners=True)
     return y.to(slab.dtype)
-
-
-class _Striped(nn.Module):
-    """`striped_forward` as a module, so that `functional_call` can run it
-    on the cast copies of a model whose compute type is not float32."""
-
-    def __init__(self, model: NestedUNet, stripes: spatial.Stripes):
-        super().__init__()
-        self.model = model
-        self.stripes = stripes
-
-    def forward(self, x: torch.Tensor):
-        m, st = self.model, self.stripes
-        train = m.training
-        recompute = m.remat and train and torch.is_grad_enabled()
-        outs = {}
-
-        def block(name, t):
-            level = st.at(t.shape[2])
-            if not train:
-                return spatial.halo(getattr(m, name), [t], level, 2, axis=2)
-            # the slab's rows [start - 2, end + 2) clipped: BatchNorm's
-            # statistics take the rank's own rows of it
-            rows = (level.start - max(level.start - 2, 0), level.rows)
-            mod = getattr(m, name)
-
-            def op(slab):
-                return remat(mod, slab, rows) if recompute else mod(slab, rows)
-
-            outs[name] = spatial.halo(op, [t], level, 2, axis=2)
-            return outs[name]
-
-        def up(t):
-            if train:
-                return spatial.resize_rows(t, st.at(t.shape[2]), 2, 2, interpolate_slab)
-            return spatial.up2x(t, st.at(t.shape[2]), 2, interpolate_rows)
-
-        y = run_topology(x, block, max_pool2, up, lambda a, b: torch.cat([a, b], 1))
-        out = m.final(y)
-        if not (train and m.deep_supervision):
-            return out
-
-        def to_input(head, t):
-            level = st.at(t.shape[2])
-            return spatial.resize_rows(head(t), level, st.rows // level.rows, 2, interpolate_slab)
-
-        return [out, to_input(m.ds1_3, outs["conv1_3"]), to_input(m.ds2_2, outs["conv2_2"]),
-                to_input(m.ds3_1, outs["conv3_1"])]
-
-
-def striped_forward(model: NestedUNet, x: torch.Tensor, stripes: spatial.Stripes):
-    """The forward of a custom-encoder NestedUNet on an H stripe: `x` (B,
-    Cin, rows, W) holds the model input's rows [stripes.start,
-    stripes.end); returns the outputs' same rows. A collective of the
-    spatial group. Each ConvBlock runs on its halo slab, 2 rows each side
-    (`spatial.halo`), the pools on stripes whose bounds are even at every
-    level, and the 1x1 heads are row-local.
-
-    Eval mode: the logits, equal to the whole forward's on one device bit
-    for bit (on the CPU; cuDNN may pick another algorithm for a stripe's
-    shape); BatchNorm is row-local and the decoder's upsample reads the
-    global source rows of its taps (`interpolate_rows`).
-
-    Train mode (`train.trainer.make_train_step` under a spatial mesh): the
-    outputs of the whole train-mode forward (with deep supervision [out,
-    ds1_3, ds2_2, ds3_1], the heads resized to the input on their stripes,
-    `spatial.resize_rows`), with autograd through the transport. Each
-    BatchNorm takes its statistics over the rank's own rows of the slab
-    (`BatchNorm2d(rows=...)`) reduced over both axes, and normalises the
-    slab's halo rows with them, so that one exchange a block serves both
-    convs. The upsamples take their rows from the slab alone
-    (`interpolate_slab`). With `remat`, each block is recomputed in the
-    backward and its exchange is not: it stays outside the recomputed
-    region."""
-    if model.pretrained_encoder:
-        raise NotImplementedError("the ResNet50-encoder NestedUNet on H stripes: ROADMAP A15e")
-    net = _Striped(model, stripes)
-    if next(model.parameters()).dtype != model.dtype:
-        state = {f"model.{k}": v for k, v in model._cast_state().items()}
-        return functional_call(net, state, (x.to(model.dtype),))
-    return net(x)

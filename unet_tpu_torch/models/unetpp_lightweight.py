@@ -10,6 +10,14 @@ concatenation is `[skip, up]`, and the deep-supervision heads run only in
 train mode. The logits come out at the resolution of the encoder's first
 stage: the input's for `custom`, a quarter of it for the resnets,
 mobilenet_v3_small and shufflenet, half for mobilenet_v3_large.
+
+On H stripes of the mesh's spatial axis (`striped_compute`; the stripes'
+bounds on multiples of `stripe_unit`, the encoder's total stride): the
+encoder's own `striped`, the decoder's ConvBlocks on their halo slabs, the
+upsample from the global source rows of its taps, deciding on the global
+heights as `_up_to` does on shapes. Eval mode for every encoder; train mode
+(the deep-supervision heads resized to the input on their stripes) for
+`custom`, the one whose logits keep the input's size.
 """
 from __future__ import annotations
 
@@ -18,8 +26,11 @@ from typing import List, Optional, Sequence, Union
 import torch
 import torch.nn as nn
 
-from unet_tpu_torch.models.blocks import ComputeDtype, ConvBlock, max_pool2
-from unet_tpu_torch.ops.image import resize_bilinear_align_corners, upsample2x_align_corners
+from unet_tpu_torch.models.blocks import ComputeDtype, ConvBlock, max_pool2, on_stripes
+from unet_tpu_torch.ops.image import (resize_bilinear_align_corners,
+                                      resize_bilinear_align_corners_rows,
+                                      upsample2x_align_corners, upsample2x_align_corners_rows)
+from unet_tpu_torch.parallel import spatial
 
 # the reference's channel table (unet_tpu/models/unetpp_lightweight.py:22-29);
 # mobilenet_v3_large's fourth and shufflenet's fifth entries are not what those
@@ -32,6 +43,13 @@ ENCODER_CHANNELS = {
     "resnet18": (64, 64, 128, 256, 512),
     "resnet34": (64, 64, 128, 256, 512),
     "custom": (32, 64, 128, 256, 512),
+}
+
+# (total stride: the stripes' unit, the input's side over the logits') per encoder
+ENCODER_STRIDES = {
+    "custom": (16, 1), "resnet18": (32, 4), "resnet34": (32, 4),
+    "mobilenet_v3_small": (32, 4), "mobilenet_v3_large": (32, 2),
+    "shufflenet_v2_x1_0": (64, 4),
 }
 
 DEFAULT_DECODER_CHANNELS = {
@@ -58,11 +76,15 @@ class _CustomEncoder(nn.Module):
         for i in range(5):
             setattr(self, f"enc{i}", ConvBlock(3 if i == 0 else ch[i - 1], ch[i]))
 
-    def forward(self, x: torch.Tensor):
-        feats = [self.enc0(x)]
+    def forward(self, x: torch.Tensor, st=None):
+        run = (lambda m, t: m(t)) if st is None else (lambda m, t: m.striped(t, st))
+        feats = [run(self.enc0, x)]
         for i in range(1, 5):
-            feats.append(getattr(self, f"enc{i}")(max_pool2(feats[-1])))
+            feats.append(run(getattr(self, f"enc{i}"), max_pool2(feats[-1])))
         return tuple(feats)
+
+    def striped(self, x: torch.Tensor, st):
+        return self(x, st)
 
 
 def _make_encoder(encoder: str) -> nn.Module:
@@ -89,6 +111,28 @@ def _up_to(t: torch.Tensor, hw) -> torch.Tensor:
     if tuple(hw) == (2 * h, 2 * w):
         return upsample2x_align_corners(t, 2, 3)
     return resize_bilinear_align_corners(t, hw, 2, 3)
+
+
+def _up_to_striped(t: torch.Tensor, skip: torch.Tensor, st: spatial.Stripes) -> torch.Tensor:
+    """`_up_to(t, skip.shape[2:])` on H stripes: the choice made on the
+    global heights of the source and the skip, the rows of this rank's
+    stripe from the global source rows of their taps."""
+    src = st.at(t.shape[2])
+    h, H, W = src.height, st.at(skip.shape[2]).height, skip.shape[3]
+    if (h, t.shape[3]) == (H, W):
+        return t
+    if (H, W) == (2 * h, 2 * t.shape[3]):
+        return spatial.up2x(t, src, 2, lambda slab, lo, n, rows:
+                            upsample2x_align_corners_rows(slab, lo, n, rows, 2, 3))
+    return _resize_rows(t, src, H // h, W)
+
+
+def _resize_rows(t: torch.Tensor, src: spatial.Stripes, scale: int, W: int) -> torch.Tensor:
+    """This rank's rows of `resize_bilinear_align_corners` of the striped `t`
+    to (scale x its global height, W)."""
+    return spatial.resize_rows(t, src, scale, 2, lambda slab, lo, n, out, rows:
+                               resize_bilinear_align_corners_rows(slab, lo, n, out, rows, W,
+                                                                  2, 3))
 
 
 class LightweightNestedUNet(ComputeDtype):
@@ -119,6 +163,14 @@ class LightweightNestedUNet(ComputeDtype):
             self.ds1_3 = nn.Conv2d(dec[1], num_classes, 1)
         self.dtype = dtype
 
+    @property
+    def stripe_unit(self) -> int:
+        return ENCODER_STRIDES[self.encoder_name][0]
+
+    @property
+    def logits_stride(self) -> int:
+        return ENCODER_STRIDES[self.encoder_name][1]
+
     def compute(self, x: torch.Tensor) -> Union[torch.Tensor, List[torch.Tensor]]:
         x0_0, x1_0, x2_0, x3_0, x4_0 = self.encoder(x)
         cat = lambda skip, t: torch.cat([skip, _up_to(t, skip.shape[2:])], 1)
@@ -129,6 +181,28 @@ class LightweightNestedUNet(ComputeDtype):
         out = self.final(x0_4)
         if self.deep_supervision and self.training:
             rs = lambda t: resize_bilinear_align_corners(t, x.shape[2:], 2, 3)
+            return [out, rs(self.ds1_3(x1_3)), rs(self.ds2_2(x2_2)), rs(self.ds3_1(x3_1))]
+        return out
+
+    def striped_compute(self, x: torch.Tensor, st: spatial.Stripes
+                        ) -> Union[torch.Tensor, List[torch.Tensor]]:
+        """`compute` on an H stripe (`blocks.ComputeDtype.forward`), op for op."""
+        if self.training and self.logits_stride != 1:
+            raise RuntimeError(f"LightweightNestedUNet({self.encoder_name!r}) trains on whole "
+                               f"planes only: its logits come out at 1/{self.logits_stride} of "
+                               f"the input's side")
+        x0_0, x1_0, x2_0, x3_0, x4_0 = on_stripes(self.encoder, x, st)
+        cat = lambda skip, t: torch.cat([skip, _up_to_striped(t, skip, st)], 1)
+        x3_1 = self.conv3_1.striped(cat(x3_0, x4_0), st)
+        x2_2 = self.conv2_2.striped(cat(x2_0, x3_1), st)
+        x1_3 = self.conv1_3.striped(cat(x1_0, x2_2), st)
+        x0_4 = self.conv0_4.striped(cat(x0_0, x1_3), st)
+        out = self.final(x0_4)
+        if self.deep_supervision and self.training:
+            def rs(t):
+                level = st.at(t.shape[2])
+                return _resize_rows(t, level, st.rows // level.rows, x.shape[3])
+
             return [out, rs(self.ds1_3(x1_3)), rs(self.ds2_2(x2_2)), rs(self.ds3_1(x3_1))]
         return out
 

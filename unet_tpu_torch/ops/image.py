@@ -192,19 +192,34 @@ def resize_bilinear_align_corners(x: torch.Tensor, out_hw: Sequence[int], h_axis
     and every operation rounded to x.dtype, so the result is bit-identical
     to the JAX function in float32 and in bf16 (F.interpolate in bf16 is
     not). An axis of size 1, or resized to 1, takes row 0."""
-    def axis_rs(t, axis, out):
-        n = t.shape[axis]
-        if n == out:
-            return t
-        if out == 1 or n == 1:
-            return t.index_select(axis, torch.zeros(out, dtype=torch.int64, device=t.device))
-        i0, i1, w = _table(_align_corners_taps, out, n, t.device)
-        shape = [1] * t.ndim
-        shape[axis] = out
-        w = w.to(t.dtype).reshape(shape)
-        return t.index_select(axis, i0) * (1 - w) + t.index_select(axis, i1) * w
+    return _ac_axis(_ac_axis(x, h_axis, int(out_hw[0])), w_axis, int(out_hw[1]))
 
-    return axis_rs(axis_rs(x, h_axis, int(out_hw[0])), w_axis, int(out_hw[1]))
+
+def _ac_axis(t: torch.Tensor, axis: int, out: int, n: int = 0, lo: int = 0,
+             rows=None) -> torch.Tensor:
+    """One axis of `resize_bilinear_align_corners`: the n-row plane (t's
+    size by default) resized to `out` rows; with `rows` (s, e), output rows
+    [s, e) from t, the plane's rows [lo, ...), through the global taps."""
+    n = n or t.shape[axis]
+    s, e = rows or (0, out)
+    if n == out:
+        return t.narrow(axis, s - lo, e - s)
+    if out == 1 or n == 1:
+        return t.index_select(axis, torch.zeros(e - s, dtype=torch.int64, device=t.device))
+    i0, i1, w = _table(_align_corners_taps, out, n, t.device)
+    shape = [1] * t.ndim
+    shape[axis] = e - s
+    w = w[s:e].to(t.dtype).reshape(shape)
+    return t.index_select(axis, i0[s:e] - lo) * (1 - w) + t.index_select(axis, i1[s:e] - lo) * w
+
+
+def resize_bilinear_align_corners_rows(slab: torch.Tensor, lo: int, n: int, out: int, rows,
+                                       out_w: int, h_axis: int, w_axis: int) -> torch.Tensor:
+    """Rows [s, e) = `rows` along `h_axis` of `resize_bilinear_align_corners`
+    of an n-row plane to (out, out_w), bit for bit, from `slab`, the plane's
+    rows [lo, lo + slab rows) (every row the output rows read): the global
+    taps sliced at the output rows (parallel.spatial.resize_rows)."""
+    return _ac_axis(_ac_axis(slab, h_axis, out, n, lo, rows), w_axis, out_w)
 
 
 def rotate90_ccw(img: torch.Tensor, channel_dim: bool = None) -> torch.Tensor:

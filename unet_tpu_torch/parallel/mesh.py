@@ -35,7 +35,7 @@ model on whole frames as `build_step` does, and the model itself on the
 stripes between two re-splits (`pipeline.stages.striped_segment_forward`);
 the eval step runs its forward on the stripes of `put_batch(spatial=True)`
 and sums the confusion matrix over both axes; the train step runs the
-train-mode forward on the stripes (`models.unetpp.striped_forward`, the
+train-mode forward on the stripes (`models.blocks.ComputeDtype`, the
 halo rows' gradients sent back to their owners) and reduces:
   * `all_sum`: a sum over the pixels of the global batch, over every rank
     of the mesh (BatchNorm's sums and counts, focal and cross-entropy)
@@ -358,8 +358,8 @@ def shard_pipeline_step(step_fn, mesh: Mesh, spatial: bool = False):
     possible); each rank runs `run_pipeline` on its whole frames, the model
     on H stripes of the whole slice (`stages.striped_segment_forward`),
     and the outputs are gathered over both axes. A rank without a frame
-    launches nothing but the model's stripes. Only the custom-encoder
-    NestedUNet runs on stripes (ROADMAP A15e for the others)."""
+    launches nothing but the model's stripes. Every model of the zoo runs
+    on stripes, their bounds on multiples of the model's `stripe_unit`."""
     if spatial:
         return _spatial_pipeline_step(step_fn, mesh)
 
@@ -382,8 +382,8 @@ def _spatial_pipeline_step(step_fn, mesh: Mesh):
     model, cfg, device = parts
     forward = stages.striped_segment_forward(model, cfg, device)
     w, h = cfg.preprocess.model_size
-    stripes = _sp.Stripes(_sp.stripe_bounds(h, mesh.spatial_size), mesh.spatial_rank,
-                          mesh.spatial_group)
+    stripes = _sp.Stripes(_sp.stripe_bounds(h, mesh.spatial_size, model.stripe_unit),
+                          mesh.spatial_rank, mesh.spatial_group)
 
     def step(frames_bgr, prev_frame_bgr=None):
         frames = torch.as_tensor(frames_bgr)

@@ -4,10 +4,11 @@ exchanges that GSPMD inserts in the JAX package,
 unet_tpu/parallel/mesh.py:8-13, placed by hand).
 
 Layout. A spatial group of n ranks splits the model input's H rows into n
-stripes whose bounds fall on multiples of UNIT = 16 rows (the NestedUNet's
-four 2x2 pools), as even as that allows, the longer ones first
+stripes whose bounds fall on multiples of a unit, the model's total stride
+(`stripe_unit`: 16 for the NestedUNet's four 2x2 pools, 8 to 64 for the
+zoo; UNIT = 16 by default), as even as that allows, the longer ones first
 (`stripe_bounds`). Rank i holds rows [start_i, end_i) of every activation;
-at level l of the encoder, rows [start_i >> l, end_i >> l) (`Stripes.down`).
+at level l (stride 2^l), rows [start_i >> l, end_i >> l) (`Stripes.down`).
 
 Transport, on `all_gather_into_tensor` alone (NCCL takes it, and gloo takes
 it for CUDA tensors too). Tensors travel as their bytes, so every dtype
@@ -17,10 +18,12 @@ does, and several tensors share one collective:
     sends only the rows of its stripe that another rank asks for
   * `fetch_rows(x, lo, hi)`: the same where each rank knows only its own
     request (the requests are gathered first)
-  * `halo(op, xs, stripes, r)`: `op`, unchanged, on the slab [start - r,
-    end + r) clipped to [0, H), cropped back to [start, end): the op's own
-    padding then applies only at the global top and bottom, as in the
-    unsharded run
+  * `halo(op, xs, stripes, r, stride=s)`: `op`, unchanged, on the slab
+    [start - r, end + r) clipped to [0, H), cropped back to the output rows
+    [start / s, end / s): the op's own padding then applies only at the
+    global top and bottom, as in the unsharded run. `conv_halo` gives r
+    for a (kernel, stride, padding) window
+  * `gather_plane`: the whole plane on every rank (a global mean's input)
   * `up2x`: the rows of this rank's stripe of a x2 align-corners upsample,
     from the source rows that its taps read; `resize_rows` the same for a
     resize by any integer factor (the deep-supervision heads' resize to
@@ -52,21 +55,21 @@ UNIT = 16
 Bounds = Tuple[Tuple[int, int], ...]
 
 
-def stripe_bounds(height: int, n: int) -> Bounds:
+def stripe_bounds(height: int, n: int, unit: int = UNIT) -> Bounds:
     """[start, end) of each of n stripes of `height` model-input rows: on
-    multiples of UNIT rows, as even as that allows, the longer stripes first
-    (the last one may be shorter). ValueError where a rank would hold fewer
-    than UNIT rows."""
-    units, rest = divmod(height, UNIT)
+    multiples of `unit` rows (the model's total stride), as even as that
+    allows, the longer stripes first (the last one may be shorter).
+    ValueError where a rank would hold fewer than `unit` rows."""
+    units, rest = divmod(height, unit)
     if n < 1 or rest or units < n:
         raise ValueError(
             f"{height} rows over {n} spatial ranks: stripe boundaries fall on multiples of "
-            f"{UNIT} model-input rows (the NestedUNet's four 2x2 pools), and every rank "
-            f"needs at least {UNIT} rows")
+            f"{unit} model-input rows (the model's total stride), and every rank needs at "
+            f"least {unit} rows")
     q, r = divmod(units, n)
     bounds, s = [], 0
     for i in range(n):
-        e = s + (q + (i < r)) * UNIT
+        e = s + (q + (i < r)) * unit
         bounds.append((s, e))
         s = e
     return tuple(bounds)
@@ -121,9 +124,10 @@ class Stripes:
         return replace(self, bounds=tuple((s // k, e // k) for s, e in self.bounds))
 
     def at(self, rows: int) -> "Stripes":
-        """The layout of the level (0 to 4) where this rank holds `rows`
-        rows (distinct at every level: a stripe has at least UNIT rows)."""
-        for level in range(5):
+        """The layout of the level (0 to 6, stride 1 to 64) where this rank
+        holds `rows` rows (distinct at every level the stripes reach: a
+        stripe has at least one unit of rows)."""
+        for level in range(7):
             if self.rows >> level == rows:
                 return self.down(level)
         raise ValueError(f"no level of stripe {self.bounds[self.index]} holds {rows} rows")
@@ -348,15 +352,34 @@ def fetch_rows(x: torch.Tensor, lo: int, hi: int, stripes: Stripes, axis: int) -
 
 
 def halo(op: Callable[..., torch.Tensor], xs: Sequence[torch.Tensor], stripes: Stripes,
-         r: int, axis: int) -> torch.Tensor:
+         r: int, axis: int, stride: int = 1) -> torch.Tensor:
     """`op(*slabs)` cropped to this rank's rows, the slabs being `xs`' rows
     [start - r, end + r) clipped to [0, H): for an op whose output row
     reads input rows within r of it (a same-padded conv: r per 3x3 conv),
-    the unsharded op's rows [start, end)."""
+    the unsharded op's rows [start, end). With `stride` s (a strided conv or
+    pool; r a multiple of s, the bounds multiples of s) the output rows
+    [start / s, end / s): the slab starts on a multiple of s, so that its
+    outputs fall on the unsharded op's."""
     H = stripes.height
     wants = tuple((max(s - r, 0), min(e + r, H)) for s, e in stripes.bounds)
     y = op(*exchange(xs, stripes, wants, axis))
-    return y.narrow(axis, stripes.start - wants[stripes.index][0], stripes.rows).contiguous()
+    return y.narrow(axis, (stripes.start - wants[stripes.index][0]) // stride,
+                    stripes.rows // stride).contiguous()
+
+
+def conv_halo(kernel: int, stride: int = 1, padding: int = 0) -> int:
+    """The halo r of `halo` for a window of `kernel` rows at `stride` with
+    `padding`: output row o reads input rows [o s - p, o s - p + k), so a
+    stripe's outputs read p rows above it and k - p - s below; r is the
+    larger, rounded up to a multiple of s (0: row-local)."""
+    need = max(padding, kernel - padding - stride, 0)
+    return -(-need // stride) * stride
+
+
+def gather_plane(x: torch.Tensor, stripes: Stripes, axis: int) -> torch.Tensor:
+    """The whole plane of the striped `x` on every rank (one all-gather of
+    the stripes), for an op that reads every row, as a global mean does."""
+    return exchange([x], stripes, ((0, stripes.height),) * stripes.n, axis)[0]
 
 
 def up_source_rows(n: int, s: int, e: int, margin: int = 1, out: int = 0) -> Tuple[int, int]:

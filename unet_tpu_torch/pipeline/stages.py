@@ -52,8 +52,7 @@ import torch.nn as nn
 from unet_tpu_torch.models import NestedUNet
 from unet_tpu_torch.models import fast_forward as _ff
 from unet_tpu_torch.models import quantized as _q
-from unet_tpu_torch.models.blocks import fp32_convs
-from unet_tpu_torch.models.unetpp import striped_forward
+from unet_tpu_torch.models.blocks import ComputeDtype, fp32_convs
 from unet_tpu_torch.ops import cc as _cc
 from unet_tpu_torch.ops import clahe as _clahe
 from unet_tpu_torch.ops import color as _color
@@ -235,33 +234,38 @@ def segment_forward(model: nn.Module, cfg: PipelineCfg,
 def striped_segment_forward(model: nn.Module, cfg: PipelineCfg,
                             device: Union[str, torch.device]
                             ) -> Callable[[torch.Tensor, tuple, _sp.Stripes], torch.Tensor]:
-    """`segment_forward` on H stripes over a spatial group (parallel.spatial,
-    ROADMAP A15c): fn(x, counts, stripes) takes this rank's frames' model
-    input (k, h, w, 3), `counts` the slice's frames over the group
-    (`spatial.frame_split`), and returns their (k, C, h, w) logits, equal to
-    `segment_forward`'s on one device (bit for bit on the CPU): the slice's
-    frames are re-split into H stripes of the model input, the forward of
-    the same dtype runs on the stripes (`unetpp.striped_forward`,
-    `fast_forward.nested_unet_forward_fast_striped`,
+    """`segment_forward` on H stripes over a spatial group
+    (parallel.spatial): fn(x, counts, stripes) takes this rank's frames'
+    model input (k, h, w, 3), `counts` the slice's frames over the group
+    (`spatial.frame_split`), and returns their (k, C, h', w') logits, equal
+    to `segment_forward`'s on one device (bit for bit on the CPU): the
+    slice's frames are re-split into H stripes of the model input (bounds on
+    multiples of `model.stripe_unit`), the forward of the same dtype runs on
+    the stripes (`model(x, stripes)` for every model of the zoo, in
+    float32 or its compute dtype; the custom-encoder NestedUNet's BN-folded
+    and int8 forwards `fast_forward.nested_unet_forward_fast_striped`,
     `quantized.nested_unet_forward_int8_striped`), and the logits are
-    re-split into this rank's whole frames, in the layout
-    `segment_forward` gives them. A collective of the spatial group. Only
-    the custom-encoder NestedUNet runs on stripes; another model raises
-    NotImplementedError (ROADMAP A15e)."""
+    re-split into this rank's whole frames at their own level (a quarter or
+    half of the input's side for the zoo's low-resolution models), in the
+    layout `segment_forward` gives them. A collective of the spatial group.
+    A model without a striped forward raises NotImplementedError; the
+    BN-folded and int8 forwards of another model raise ValueError, as
+    `segment_forward` does."""
     seg = cfg.segment
-    if not (isinstance(model, NestedUNet) and not model.pretrained_encoder):
-        what = "the ResNet50-encoder NestedUNet" if isinstance(model, NestedUNet) \
-            else type(model).__name__
-        raise NotImplementedError(f"{what} on H stripes: only the custom-encoder NestedUNet "
-                                  f"runs on a spatial mesh; the model zoo is ROADMAP A15e")
+    if not isinstance(model, ComputeDtype):
+        raise NotImplementedError(f"{type(model).__name__} has no forward on H stripes: the "
+                                  f"models of the zoo (models.blocks.ComputeDtype) have one")
     model = model.to(device).eval()
     if not (seg.fast_forward or seg.int8_scales):
         def plain(x, counts, st):
             xs = _sp.frames_to_stripes(x, counts, st, axis=1).permute(0, 3, 1, 2).contiguous()
-            logits = forward_logits(lambda t: striped_forward(model, t, st), xs)
-            return _sp.stripes_to_frames(logits, counts, st, axis=2)
+            logits = forward_logits(lambda t: model(t, st), xs)
+            return _sp.stripes_to_frames(logits, counts, st.at(logits.shape[2]), axis=2)
 
         return plain
+    if not (isinstance(model, NestedUNet) and not model.pretrained_encoder):
+        raise ValueError("segment.fast_forward/int8_scales require a "
+                         "custom-encoder NestedUNet (models/fast_forward)")
     sd = model.state_dict()
     if seg.int8_scales:
         qp = _q.prepare_int8_params(sd, seg.int8_scales, model.dtype, device)

@@ -1,8 +1,7 @@
 """Dataset, calibration and evaluation tools of the port (counterpart of
 unet_tpu/tools/, the reference tools/ zoo), behind `cli tools`. Every tool
 of the JAX package is here; OpenCV (`cv2`) is imported inside the functions
-that use it. Of the JAX package's CLI only `bench` (ROADMAP A5) is left, and
-of the device mesh the model zoo on stripes (ROADMAP A15e)."""
+that use it. Of the JAX package's CLI only `bench` (ROADMAP A5) is left."""
 from unet_tpu_torch.tools.frames_extract import extract_frames, ahash, hash_similarity  # noqa: F401
 from unet_tpu_torch.tools.dataset_audit import (  # noqa: F401
     audit_labelme_dir, diagnose_mask, class_pixel_distribution, remap_masks,

@@ -35,7 +35,7 @@ float32.
 Over a mesh (`mesh=`, parallel.mesh) each rank passes its block of the
 global batch: its data slice, and on a mesh with a spatial axis its H
 stripe of the slice (`parallel.put_batch`), the forward then running on
-the stripes (`models.unetpp.striped_forward`). BN statistics and the
+the stripes (`ComputeDtype.forward(x, stripes)`). BN statistics and the
 losses are the global batch's, and every rank's gradient is the global
 batch's (parallel.mesh's convention) before accumulation, clipping and the
 update, as GSPMD's all-reduce gives it to optax in the JAX package.
@@ -53,8 +53,7 @@ import torch
 import torch.nn as nn
 
 from unet_tpu_torch.models import losses as L
-from unet_tpu_torch.models.blocks import fp32_convs
-from unet_tpu_torch.models.unetpp import NestedUNet, striped_forward
+from unet_tpu_torch.models.blocks import ComputeDtype, fp32_convs
 from unet_tpu_torch.ops import seg_metrics
 from unet_tpu_torch.parallel import mesh as _mesh
 from unet_tpu_torch.parallel import spatial
@@ -458,8 +457,8 @@ def make_eval_step(num_classes: int, mesh=None):
     which drops labels >= num_classes (the loop's padding). With `mesh`,
     over it (`parallel.shard_eval_step`): each rank's slice, and on a mesh
     with a spatial axis its H stripe of the slice (`parallel.put_batch`):
-    the forward of a custom-encoder NestedUNet on the stripes
-    (`models.unetpp.striped_forward`); the matrix summed over the mesh."""
+    the forward on the stripes (`ComputeDtype.forward(x, stripes)`); the
+    matrix summed over the mesh."""
 
     def step(state, images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         model = getattr(state, "model", state).eval()
@@ -476,14 +475,19 @@ def make_eval_step(num_classes: int, mesh=None):
 def _forward(model: nn.Module, images: torch.Tensor):
     """(the model's outputs, None), or on the H stripes of the active
     spatial mesh where the step runs over one (`parallel.mesh.over(mesh,
-    spatial=True)`), (the stripes' outputs, the model input's height)."""
+    spatial=True)`), (the stripes' outputs, the model input's height). A
+    model whose logits do not keep the input's size raises RuntimeError
+    there, before any collective, as its one-process step raises where the
+    loss or the confusion matrix meets the labels."""
     m = _mesh.active_spatial()
     if m is None:
         return model(images), None
-    if not isinstance(model, NestedUNet):
-        raise NotImplementedError(f"{type(model).__name__} on H stripes: only the "
-                                  f"custom-encoder NestedUNet runs on a spatial mesh; the model "
-                                  f"zoo is ROADMAP A15e")
+    if not isinstance(model, ComputeDtype):
+        raise NotImplementedError(f"{type(model).__name__} has no forward on H stripes")
+    if model.logits_stride != 1:
+        raise RuntimeError(f"{type(model).__name__}'s logits come out at "
+                           f"1/{model.logits_stride} of the input's side: they do not match "
+                           f"labels at the input's size")
     st = spatial.stripes_of(images.shape[2], m.spatial_rank, m.spatial_group, m.spatial_size,
                             images.device)
-    return striped_forward(model, images, st), st.height
+    return model(images, st), st.height
