@@ -210,6 +210,18 @@ Phases; any failure exits non-zero and prints no result line:
      share, peak memory per rank against one process
      Phases 12-14 run their ranks in one spawn of 2 processes and one of 4
      (`run_spatial_phases`); each keeps its own record and seconds.
+ 15. the throughput bench (`phase_bench`, after phase 14): the chunked
+     step (`stages.build_chunked_step`, K=4 batches of 8 in one call) of
+     two_stage bf16 and int8 and enhanced bf16 against 4 calls of
+     build_step, every output tensor bit for bit and exactly 4x the
+     per-batch launches (B1 8, qconv 72, B2 12); the pairs the bench runs
+     that no earlier phase holds against fp32 (enhanced bf16 and int8,
+     high_res_roi bf16 on b=2 native 2448x2048 frames, wrap_7class bf16
+     and int8), class maps at >= 0.995 of the fp32 step's; the bench's
+     first fixed point (`bench._fixed_points`, two_stage int8 chunked
+     4 x 96 at 800x448) with its frames/s, peak memory and launches, then
+     B1 and qconv at b=96 on that step's inputs and B2 on 96 planes of
+     448x800, each kernel's last 8 frames against its plain version
 Then, on the last two lines, the kernels' JSON record and
 {"ok": true, "device": {...}}.
 
@@ -4083,6 +4095,194 @@ def _spatial_zoo_part(card="", device="cuda", H=448, W=800, b=4, model_size=None
 
 
 
+# ---------------------------------------------------------------------------
+# the throughput bench (unet_tpu_torch.bench): the chunked step against
+# per-batch steps, the bench's (preset, dtype) pairs against fp32, and its
+# first fixed point at b=96
+# ---------------------------------------------------------------------------
+
+BENCH_CHUNKED = (("two_stage", "bf16"), ("two_stage", "int8"), ("enhanced", "bf16"))
+# the pairs the bench runs that no earlier phase holds against fp32
+BENCH_PAIRS = (("enhanced", "bf16"), ("enhanced", "int8"), ("high_res_roi", "bf16"),
+               ("wrap_7class", "bf16"), ("wrap_7class", "int8"))
+BENCH_AGREEMENT = 0.995   # validate_int8's fallback threshold (PERF.md §2)
+
+
+def bench_scenes(preset: str, b: int, H: int, W: int, seed: int) -> np.ndarray:
+    """Frames for a preset of the bench: enhanced's turned scenes,
+    high_res_roi's 2448x2048 ones, wrap_7class's wrap scenes, else
+    two_stage's burr scenes."""
+    if preset == "enhanced":
+        return enhanced_scenes(b, H, W, seed=seed)
+    if preset == "high_res_roi":
+        return high_res_scenes(b, seed=seed)
+    if preset == "wrap_7class":
+        return wrap_scenes(b, H, W, seed=seed)
+    return synthetic_frames(b, H, W, seed=seed)
+
+
+def phase_bench(expect, card="", device="cuda", H=448, W=800, b=8, chunk=4, high_res_b=2,
+                first_point=("chunked", 96, "int8"), check_b=8, model_size=None,
+                normalize_wh=None) -> dict:
+    """Phase 15: (a) `stages.build_chunked_step` at K=`chunk`, b=`b`
+    against `chunk` calls of `build_step` on the same frames, two_stage bf16
+    and int8 and enhanced bf16 with the seeded NestedUNet: every output
+    tensor bit for bit, launches exactly `chunk` times `expect`'s per batch
+    on both sides; (b) the pairs of BENCH_PAIRS (high_res_roi on
+    `high_res_b` native frames) against the fp32 step on the same frames,
+    class maps at >= BENCH_AGREEMENT; (c) `bench._fixed_points` at
+    `first_point` on 800x448 frames, its frames/s, peak memory and launches
+    (exactly the calls times K times the per-batch counts), then at that
+    batch the B1 and qconv inputs of the bench's int8 step, and B2 on as
+    many (H, W) planes, each kernel's output on the last `check_b` frames
+    against its plain version there. `model_size` and `normalize_wh`
+    shrink the presets for a rehearsal on the CPU."""
+    from unet_tpu_torch import bench
+    from unet_tpu_torch.ops import cc_kernels, nlm_kernels, qconv_kernels
+    from unet_tpu_torch.pipeline import presets, stages
+
+    t_phase = time.time()
+    torch.cuda.empty_cache()
+    rec = {"chunked": {}, "pairs": {}, "seconds": {}}
+
+    def preset(name):
+        cfg = presets.get_preset(name)
+        if model_size is not None:
+            cfg = cfg.replace_in("preprocess", model_size=(model_size, model_size))
+        if normalize_wh is not None and cfg.preprocess.normalize_wh:
+            cfg = cfg.replace_in("preprocess", normalize_wh=normalize_wh)
+        return cfg
+
+    models = {}
+
+    def model(n, dtype):
+        if (n, dtype) not in models:
+            models[n, dtype] = seeded_nested_unet(num_classes=n, dtype=dtype)
+        return models[n, dtype]
+
+    def low_cfg(name, dtype, calib):
+        cfg = preset(name)
+        if dtype == "bf16":
+            return cfg.replace_in("segment", fast_forward=True)
+        return stages.calibrate_int8(model(cfg.segment.num_classes, torch.bfloat16), cfg,
+                                     [calib], device=device)
+
+    # (a) the chunked step against per-batch steps
+    t = time.time()
+    for name, dtype in BENCH_CHUNKED:
+        path = f"{name}_{dtype}"
+        frames = torch.from_numpy(bench_scenes(name, chunk * b, H, W, seed=50)).to(device)
+        frames = frames.reshape((chunk, b) + frames.shape[1:])
+        cfg = low_cfg(name, dtype, bench_scenes(name, b, H, W, seed=58))
+        m = model(3, torch.bfloat16)
+        chunked = stages.build_chunked_step(m, cfg, device=device)
+        step = stages.build_step(m, cfg, device=device)
+        got, counts = _runner_counts(chunked, frames)
+        want, counts_pb = _runner_counts(lambda f: [step(fb) for fb in f], frames)
+        per_batch = expect[path if name == "two_stage" else name]
+        times = {k: chunk * v for k, v in per_batch.items()}
+        if counts != times or counts_pb != times:
+            raise AssertionError(f"chunked {path}: launches {counts} and {counts_pb} per "
+                                 f"{chunk} batches, expected {times}")
+        g = _leaves(got)
+        for k, w in enumerate(want):
+            wl = _leaves(w)
+            if set(wl) != set(g):
+                raise AssertionError(f"chunked {path}: fields {sorted(g)} vs {sorted(wl)}")
+            for f, wv in wl.items():
+                if tuple(g[f].shape) != (chunk,) + tuple(wv.shape) or not torch.equal(g[f][k], wv):
+                    raise AssertionError(f"chunked {path}: {f}[{k}] differs from build_step's")
+        _check_outputs(stages.FrameOutputs(*(getattr(got, f).flatten(0, 1) for f in (
+            "class_map", "cable_px", "tape_px", "burr_px"))), chunk * b,
+            *got.class_map.shape[-2:], f"chunked {path}")
+        rec["chunked"][path] = dict(launches=counts, tensors=len(g), batches=chunk, batch=b,
+                                    cable_px=got.cable_px.sum().item())
+        _log(f"bench chunked {path}: K={chunk} x b={b} in one call equals {chunk} build_step "
+             f"calls bit for bit ({len(g)} tensors); launches {counts}")
+    rec["seconds"]["chunked"] = round(time.time() - t, 1)
+
+    # (b) the bench's new (preset, dtype) pairs against the fp32 step
+    t = time.time()
+    for name, dtype in BENCH_PAIRS:
+        cfg32 = preset(name)
+        n = cfg32.segment.num_classes
+        bb = high_res_b if name == "high_res_roi" else b
+        frames = torch.from_numpy(bench_scenes(name, bb, H, W, seed=60)).to(device)
+        ref = stages.build_step(model(n, torch.float32), cfg32, device=device)(frames)
+        cfg = low_cfg(name, dtype, bench_scenes(name, bb, H, W, seed=68))
+        out, counts = _runner_counts(stages.build_step(model(n, torch.bfloat16), cfg,
+                                                       device=device), frames)
+        want_q = expect["two_stage_int8"]["qconv"] if dtype == "int8" else 0
+        want_nlm = expect["enhanced"]["nlm"] if name == "enhanced" else 0
+        if (counts["qconv"], counts["nlm"]) != (want_q, want_nlm):
+            raise AssertionError(f"{name} {dtype}: launches {counts}")
+        agree = float((out.class_map == ref.class_map).float().mean())
+        rec["pairs"][f"{name}_{dtype}"] = dict(agreement_vs_fp32=agree, launches=counts, batch=bb)
+        _log(f"bench pair {name} {dtype} (model {cfg.preprocess.model_size[0]}^2, b={bb}, "
+             f"frames {tuple(frames.shape[1:3])}): class maps vs the fp32 step {agree:.6f}; "
+             f"launches {counts}")
+        if not agree >= BENCH_AGREEMENT:
+            raise AssertionError(f"{name} {dtype}: class maps agree {agree} < {BENCH_AGREEMENT} "
+                                 f"with the fp32 step")
+    rec["seconds"]["pairs"] = round(time.time() - t, 1)
+
+    # (c) the bench's first fixed point, then its kernels at that batch
+    t = time.time()
+    mode, pb, dtype = first_point
+    K = 4   # bench._fixed_points' chunk
+    _zero_counts()
+    results = bench._fixed_points("two_stage", {}, [first_point], frame_hw=(H, W), device=device)
+    counts = _read_counts()
+    if not results:
+        raise AssertionError(f"bench point {first_point} skipped: {bench._PARTIAL['skipped']}")
+    r = results[0]
+    calls = 1 + bench.REPEATS * max(int(round(bench.N_FRAMES / (K * pb))), 4)
+    per_call = {k: v * (K if mode == "chunked" else 1)
+                for k, v in expect[f"two_stage_{dtype}"].items()}
+    if counts != {k: calls * v for k, v in per_call.items()}:
+        raise AssertionError(f"bench point {first_point}: launches {counts} in {calls} calls, "
+                             f"expected {per_call} a call")
+    rec["point"] = dict(r, calls=calls, launches=counts, seconds=round(time.time() - t, 1))
+    _log(f"bench point {mode}/b{pb}/{dtype} two_stage {W}x{H}: {r['fps']:.2f} frames/s (median "
+         f"{r['median']:.2f}), peak {r['peak_gib']} GiB, {calls} calls, launches {counts} [{card}]")
+
+    model96, _cfg, cfg_for = bench._build_pipeline("two_stage", {}, (H, W), device=device)
+    frames = torch.from_numpy(bench._synthetic_frames(np.random.default_rng(0), pb, H, W)
+                              ).to(device)
+    cc_rec, _, q_rec = _record_main_path_inputs(
+        stages.build_step(model96, cfg_for(dtype), device=device), frames, f"bench_b{pb}")
+    n = min(check_b, pb)
+    for site, (state0, fg, kw) in cc_rec.items():
+        got = cc_kernels.propagate(state0, fg, **kw)[-n:]
+        if not torch.equal(got, cc_kernels.propagate_plain(state0[-n:], fg[-n:], **kw)):
+            raise AssertionError(f"cc_propagate at {site} {tuple(state0.shape)}: the last {n} "
+                                 f"planes differ from the plain version")
+    for site, (x, wq, mult, bias) in q_rec.items():
+        tail = tuple(s[-n:] for s in x) if isinstance(x, tuple) else x[-n:]
+        if not torch.equal(qconv_kernels.qconv(x, wq, mult, bias)[-n:],
+                           qconv_kernels.qconv_plain(tail, wq, mult, bias)):
+            raise AssertionError(f"qconv at {site}: the last {n} frames differ from the plain "
+                                 f"version")
+    planes = torch.from_numpy(noisy_planes((pb, H, W), seed=9)).to(device)
+    got, want = nlm_kernels.nlm(planes, 10.0)[-n:], nlm_kernels.nlm_plain(planes[-n:], 10.0)
+    nlm_err = float((got - want).abs().max())
+    if not torch.allclose(got, want, **NLM_TOL):
+        raise AssertionError(f"nlm on {tuple(planes.shape)} planes: the last {n} differ from "
+                             f"the plain version by {nlm_err}")
+    rec["b96_checks"] = dict(cc_sites=sorted(cc_rec), qconv_sites=len(q_rec),
+                             shapes={s: list(v[0].shape) for s, v in cc_rec.items()},
+                             nlm_planes=list(planes.shape), nlm_max_abs_err=nlm_err,
+                             frames_checked=n)
+    _log(f"bench b={pb}: B1 at {len(cc_rec)} sites {[tuple(v[0].shape) for v in cc_rec.values()]} "
+         f"and qconv at {len(q_rec)} sites bit for bit with their plain versions on the last {n} "
+         f"frames; B2 on {tuple(planes.shape)} planes within rtol 2e-5 / atol 2e-3 (max abs "
+         f"err {nlm_err:.3e})")
+    rec["seconds"]["point"] = round(time.time() - t, 1)
+    rec["seconds"]["phase"] = round(time.time() - t_phase, 1)
+    _log(f"phase bench: {rec['seconds']} s")
+    return rec
+
+
 @contextlib.contextmanager
 def _deterministic():
     """torch's deterministic algorithms (and cuDNN's), restored on exit."""
@@ -4329,6 +4529,11 @@ def main() -> int:
         [functools.partial(part, card) for part in (_spatial_part, _spatial_train_part,
                                                     _spatial_zoo_part)], "cuda")
 
+    # -- phase 15, the throughput bench: the chunked step against per-batch
+    # steps, the bench's new (preset, dtype) pairs against fp32, its first
+    # fixed point at b=96 and the kernels at that batch
+    bench = phase_bench(expect, card=card)
+
     # the mma.sync kernel has no main-path launch (conv0_0.conv1 takes the c3
     # kernel): its entry holds its time forced at that site, the c3 kernel's
     # yardstick
@@ -4362,7 +4567,10 @@ def main() -> int:
                     for k, r in spatial["runs"].items()},
                 "spatial_zoo_launches_per_rank": {
                     k: [row["counts"].get(name, 0) for row in r["per_rank"]]
-                    for k, r in spatial_zoo["runs"].items()}, **extra}
+                    for k, r in spatial_zoo["runs"].items()},
+                "bench_chunked_launches_per_call": {
+                    k: r["launches"][name] for k, r in bench["chunked"].items()
+                    if r["launches"][name]}, **extra}
 
     record = {"kernels": [
         entry("cc_propagate", "unet_tpu_torch/csrc/cc_propagate.cu",
@@ -4391,7 +4599,7 @@ def main() -> int:
         "engine": engine, "inspect_engine": gate_engine, "config_runs": config_runs,
         "models_b8": mod_timings, "model_checks": mod_checks, "device_trace": trace,
         "train": train, "export": export, "mesh": mesh, "spatial": spatial,
-        "spatial_train": spatial_train, "spatial_zoo": spatial_zoo,
+        "spatial_train": spatial_train, "spatial_zoo": spatial_zoo, "bench": bench,
         "card": card, "seconds": round(time.time() - t_start, 1)}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -126,13 +126,14 @@ def test_int8_short_directory_holds_out_agreement_frames(tmp_path, capsys):
     assert len(_rows(out / "events.csv")) == 1 + 16
 
 
-def test_what_is_not_ported_names_its_item(data, tmp_path):
+def test_what_is_not_ported_names_its_item(data, tmp_path, monkeypatch, capsys):
     """What is not ported names its ROADMAP item (an orbax directory names
-    convert_orbax.py, which reads it); what A12, A13, A14 and A15's export
-    ported now runs: a pipeline YAML (`--config`), `--arch
+    convert_orbax.py, which reads it); what A12, A13, A14, A15's export and
+    A5 ported now runs: a pipeline YAML (`--config`), `--arch
     simple_unet` and a ResNet50-NestedUNet .pth, each writing a row a frame;
     `train` and `evaluate` over a labelled split; `tools` (audit,
-    summarize-checkpoints) and `export` of the trained model."""
+    summarize-checkpoints) and `export` of the trained model; `bench` on
+    the CPU with a 64^2 model and one small point, one JSON line."""
     base = ["infer", "--video", data["burr"], "--output", str(tmp_path / "o"), "--device", "cpu"]
     split = cs.write_split(tmp_path / "split", 4, 2, 40, 56)
     assert main(["train", "--recipe", "3class_advanced", "--data-root", split, "--output",
@@ -141,11 +142,21 @@ def test_what_is_not_ported_names_its_item(data, tmp_path):
     assert main(["evaluate", "--data-root", split, "--model", str(tmp_path / "t" / "last.pth"),
                  "--image-size", "32", "--output", str(tmp_path / "e"), "--device", "cpu"]) == 0
     assert json.loads((tmp_path / "e" / "metrics.json").read_text())["miou"] >= 0
-    for argv, item in (
-            (base + ["--model", str(tmp_path)], "convert_orbax.py"),
-            (["bench", "--config", "2"], "A5")):
-        with pytest.raises(SystemExit, match=item):
-            main(argv)
+    with pytest.raises(SystemExit, match="convert_orbax.py"):
+        main(base + ["--model", str(tmp_path)])
+    from unet_tpu_torch import bench
+
+    monkeypatch.setattr(bench, "MODEL_SIZE", (64, 64))
+    monkeypatch.setattr(bench, "N_FRAMES", 1)
+    monkeypatch.setattr(bench, "REPEATS", 1)
+    monkeypatch.setattr(bench, "CONFIG_NAMES", {2: ("two_stage", {}, "two_stage_800x448",
+                                                    (112, 200))})
+    monkeypatch.setattr(bench, "FIXED_POINTS", {2: [("chunked", 1, "bf16")]})
+    capsys.readouterr()
+    assert main(["bench", "--config", "2", "--device", "cpu"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert {"metric", "value", "unit", "vs_baseline", "median_fps", "bf16_fps"} <= set(line)
+    assert line["metric"] == "two_stage_800x448_fps_per_chip(batch=1)" and line["value"] > 0
     labelme = tmp_path / "labelme"
     labelme.mkdir()
     (labelme / "a.json").write_text(json.dumps({

@@ -36,7 +36,7 @@ def test_every_module_imports_without_jax():
               "data.labelme", "tools.frames_extract", "tools.dataset_audit", "tools.calibrate",
               "tools.annotate", "tools.hard_negatives", "tools.visualize_dataset",
               "tools.interactive", "export", "export.aot", "parallel", "parallel.mesh",
-              "parallel.multihost"):
+              "parallel.multihost", "bench"):
         assert f"unet_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -13,6 +13,8 @@
   export    a torch.export program (.pt2) of the model forward, or of the
             whole fused step with --pipeline (export.aot); the hand-written
             kernels are custom ops of the program
+  bench     the throughput benchmark at the JAX package's operating points
+            (unet_tpu_torch.bench): one JSON line
 
 Every model of the JAX package runs (--arch): nested_unet,
 nested_unet_resnet50, simple_unet and lightweight[:encoder] with the
@@ -22,8 +24,7 @@ first three families loads with its family read from its keys, and a
 checkpoint of `train` (`best.pth`, `last.pth`) with its family read from
 its sidecar.
 
-`bench` is not ported yet (ROADMAP A5): it names its item and exits
-non-zero. `train` runs over every rank that `torchrun --nproc-per-node N`
+`train` runs over every rank that `torchrun --nproc-per-node N`
 starts (parallel.mesh's data axis; a recipe's `TrainRunCfg.n_spatial` adds
 the spatial axis, as in the JAX package, for the models whose logits keep
 the input's size: nested_unet, simple_unet and lightweight:custom). Every
@@ -48,8 +49,9 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from unet_tpu_torch import bench
+
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_NOT_PORTED = {"bench": "ROADMAP A5 (the port bench)"}
 N_CALIB = 16
 ARCHS = ("nested_unet", "nested_unet_resnet50", "simple_unet",
          "lightweight[:custom|resnet18|resnet34|mobilenet_v3_small|mobilenet_v3_large|"
@@ -501,10 +503,15 @@ def cmd_export(args) -> int:
     return 0
 
 
-def cmd_not_ported(args) -> int:
-    raise SystemExit(f"{args.cmd}: not ported to unet_tpu_torch yet, "
-                     f"{_NOT_PORTED[args.cmd]}; the JAX package has it "
-                     f"(python -m unet_tpu.cli {args.cmd})")
+def cmd_bench(args) -> int:
+    """The throughput benchmark (unet_tpu/cli/main.py:314), one JSON line."""
+    argv = ["--config", str(args.config), "--budget-s", str(args.budget_s),
+            "--device", args.device]
+    if args.int8:
+        argv.append("--int8")
+    if args.sweep:
+        argv.append("--sweep")
+    return bench.main(argv)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -683,17 +690,15 @@ def build_parser() -> argparse.ArgumentParser:
     device_flag(pk)
     pk.set_defaults(fn=cmd_tools)
 
-    for name, item in _NOT_PORTED.items():
-        sub.add_parser(name, help=f"not ported yet: {item}").set_defaults(fn=cmd_not_ported)
+    pb = sub.add_parser("bench", help="the throughput benchmark (one JSON line)")
+    bench.add_arguments(pb)
+    device_flag(pb)
+    pb.set_defaults(fn=cmd_bench)
     return p
 
 
 def main(argv: Optional[list] = None) -> int:
-    parser = build_parser()
-    # a command not ported yet takes any flags of the JAX package's and names its item
-    args, extra = parser.parse_known_args(argv)
-    if extra and args.fn is not cmd_not_ported:
-        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = build_parser().parse_args(argv)
     return args.fn(args)
 
 

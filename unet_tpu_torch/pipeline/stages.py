@@ -806,6 +806,42 @@ def build_step(model: nn.Module, cfg: PipelineCfg, device: Union[str, torch.devi
     return step
 
 
+def _stack(outs):
+    """K outputs of one structure stacked field by field to (K, ...); a
+    None field stays None."""
+    first = outs[0]
+    if first is None:
+        return None
+    if isinstance(first, torch.Tensor):
+        return torch.stack(outs)
+    return type(first)(*(_stack([o[i] for o in outs]) for i in range(len(first))))
+
+
+def build_chunked_step(model: nn.Module, cfg: PipelineCfg,
+                       device: Union[str, torch.device] = "cuda"
+                       ) -> Callable[[Union[np.ndarray, torch.Tensor]], FrameOutputs]:
+    """The offline, throughput form of `build_step`
+    (unet_tpu/pipeline/stages.py:700-715): step(frames) with frames (K, B,
+    H, W, 3) uint8 BGR runs the K batches from one call and returns a
+    `FrameOutputs` whose every tensor is stacked to (K, ...), nested tuples
+    field by field, None fields None. The forward is prepared once
+    (`segment_forward`); the K batches are queued on the card with no host
+    sync between them. Each batch's quality statistics diff its first frame
+    against itself, as the JAX function's do (no previous frame). A `cuda`
+    step without a card raises."""
+    _unsupported(cfg)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_chunked_step(device='cuda') needs a CUDA device")
+    forward = segment_forward(model, cfg, device)
+
+    def step(frame_chunks) -> FrameOutputs:
+        chunks = torch.as_tensor(frame_chunks).to(device)
+        return _stack([run_pipeline(forward, fb, cfg) for fb in chunks])
+
+    return step
+
+
 @torch.inference_mode()
 def calibrate_int8(model: nn.Module, cfg: PipelineCfg, frame_batches,
                    device: Union[str, torch.device] = "cuda") -> PipelineCfg:
